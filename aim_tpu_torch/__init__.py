@@ -7,9 +7,10 @@ unchanged).  It runs the same alignment pipeline with the same frozen
 device kernels are hand-written CUDA C++ for ``sm_90a`` under
 ``aim_tpu_torch/csrc/``, built with ``nvcc`` at first use.
 
-Ported so far: the WFA / WFA-adaptive short-read tier (the reference's
-``ops/wfa_pallas2.py``), i.e. the main path
-``python -m aim_tpu_torch.cli wfa -l 100 -e 0.01 -b -r``.  Every other
+Ported so far: the short-read tiers of WFA / WFA-adaptive (the reference's
+``ops/wfa_pallas2.py``; the main path
+``python -m aim_tpu_torch.cli wfa -l 100 -e 0.01 -b -r``), NW
+(``ops/nw_pallas.py``) and SWG (``ops/swg_pallas.py``).  Every other
 configuration raises ``NotImplementedError`` naming its ROADMAP item.
 
 Importing this package never builds a kernel and never needs CUDA.

@@ -1,9 +1,11 @@
 """High-level alignment API of the port: batches, device phases, decode.
 
-The counterpart of ``aim_tpu/api.py`` for the step-record path: pack the
-pairs, upload each chunk, run the kernel, pull the records, expand them
-into CIGARs with the native decoder, emit the reference-format file.
-The host runtime (parser, record decoder, emitter, oracle) is
+The counterpart of ``aim_tpu/api.py`` for the kernel tiers the port has:
+pack the pairs, upload each chunk, run the kernel, pull the records,
+decode them by their grammar (WFA step records or NW/SWG packed runs)
+into scores and CIGARs with the native decoders, re-run the pairs a
+kernel flags on the exact host oracle, emit the reference-format file.
+The host runtime (parser, record decoders, emitter, oracle) is
 ``aim_tpu.native``, shared with the reference package.
 """
 
@@ -16,8 +18,8 @@ import numpy as np
 import torch
 
 from aim_tpu import native
-from aim_tpu.config import ALGO_WFA, AlignConfig
-from aim_tpu_torch.ops import kernels, wfa2
+from aim_tpu.config import ALGO_NW, ALGO_SWG, ALGO_WFA, AlignConfig
+from aim_tpu_torch.ops import kernels
 from aim_tpu_torch.ops.common import pack_seqs, round_up, to_device_batch
 
 WAVE = 8            # chunks uploaded together before their kernels run
@@ -34,8 +36,8 @@ class AlignResult:
     t_load: float = 0.0
     t_kernel: float = 0.0
     t_retrieve: float = 0.0
-    # pairs re-run on the host oracle; the WFA short-read tier has no
-    # fallback conditions, so this stays 0
+    # pairs a kernel flagged (packed-run bit 8) and the exact host oracle
+    # re-ran; the WFA short-read tier never flags
     n_fallback: int = 0
 
 
@@ -55,11 +57,13 @@ def _device_memory_budget(device: torch.device) -> int:
 
 def _memory_batch_cap(cfg: AlignConfig, device: torch.device,
                       budget_bytes: int | None = None) -> int:
-    """Pairs per chunk that fit the device budget, at the kernel's real
-    per-pair footprint (uploads, records, history scratch)."""
+    """Pairs per chunk that fit the device budget, at the per-pair
+    footprint of the kernel that serves the config (uploads, records,
+    global scratch)."""
     if budget_bytes is None:
         budget_bytes = _device_memory_budget(device)
-    return max(256, budget_bytes // wfa2.device_bytes_per_pair(cfg))
+    per_pair = kernels.forward_fn(cfg).device_bytes_per_pair
+    return max(256, budget_bytes // per_pair)
 
 
 def _plan_bs(cfg: AlignConfig, n: int, device: torch.device) -> int:
@@ -124,14 +128,54 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     smax = cfg.max_score
     for lo, rec in zip(starts, records):
         chunk = slice(lo, lo + rec.shape[0])
-        # row smax+3 holds the score (the tier raises no fallback flags)
-        scores[chunk] = rec[:, smax + 3]
-        if cfg.backtrace:
-            _, o, b, e = native.wfa_steps_to_ops(
-                rec, plens[chunk], tlens[chunk], max_score=smax,
-                max_ops=max_ops)
-            ops[chunk], begin[chunk], end[chunk] = o, b, e
+        flagged = None
+        if fwd.records == kernels.STEP_RECORDS:
+            # WFA: row smax+3 holds the score (no fallback conditions)
+            scores[chunk] = rec[:, smax + 3]
+            if cfg.backtrace:
+                _, o, b, e = native.wfa_steps_to_ops(
+                    rec, plens[chunk], tlens[chunk], max_score=smax,
+                    max_ops=max_ops)
+                ops[chunk], begin[chunk], end[chunk] = o, b, e
+        else:
+            # NW/SWG packed runs: lane 0 = cursor | flags << 8 (bit 8 =
+            # needs_fallback), lane 1 = score, then the runs
+            lane0 = rec[:, 0].astype(np.int32)
+            scores[chunk] = rec[:, 1]
+            flagged = np.nonzero((lane0 >> 8) & 1)[0]
+            if cfg.backtrace:
+                o, b, e = native.wfa_runs_to_ops(
+                    rec, scores[chunk], plens[chunk], tlens[chunk],
+                    max_score=1 << 30, max_ops=max_ops)
+                ops[chunk], begin[chunk], end[chunk] = o, b, e
+        if flagged is not None and len(flagged):
+            # pairs the band cannot prove exact: the exact host oracle
+            # (the reference's wide-band device retry is not ported yet)
+            sel = lo + flagged
+            res.n_fallback += len(sel)
+            osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel],
+                                              plens[sel], tlens[sel], cfg)
+            scores[sel] = osc
+            if cfg.backtrace:
+                ops[sel], begin[sel], end[sel] = oops, ob, oe
     return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
+
+
+def _oracle_align(pats, txts, plens, tlens, cfg: AlignConfig):
+    """The exact host path for flagged NW/SWG pairs (aim_tpu/api.py
+    ``_oracle_align``), on a pool sized from the host."""
+    if cfg.algo == ALGO_NW:
+        return native.nw_align(pats, txts, plens, tlens,
+                               mismatch=cfg.mismatch, gap_i=cfg.gap_i,
+                               gap_d=cfg.gap_d, backtrace=cfg.backtrace,
+                               threads=0)
+    if cfg.algo == ALGO_SWG:
+        return native.swg_align(pats, txts, plens, tlens, match=cfg.match,
+                                mismatch=cfg.mismatch, gap_o=cfg.gap_o,
+                                gap_e=cfg.gap_e, max_score=cfg.max_score,
+                                cell_width=cfg.cell_width,
+                                backtrace=cfg.backtrace, threads=0)
+    raise ValueError(f"{cfg.algo}: no flagged pairs expected")
 
 
 def _overflow_bt_pass(pats, txts, plens, tlens, cfg: AlignConfig,

@@ -6,8 +6,15 @@ The same flags, config derivation and output as ``aim_tpu.cli``, whose
     python -m aim_tpu_torch.cli wfa -i pairs.txt -o out -l 100 -e 0.01 \\
         -n 40000 -b -r
 
-Ported so far: the WFA short-read tier.  Other configs exit non-zero with
-the ROADMAP item that will port them.  ``-d`` caps the device count at 1
+Ported so far: the short-read tiers of WFA / WFA-adaptive (kernel K1), NW
+(K2) and SWG (K3), e.g.
+
+    python -m aim_tpu_torch.cli nw -i pairs.txt -o out -l 100 -e 0.01 -b
+    python -m aim_tpu_torch.cli swg -i pairs.txt -o out -l 100 -e 0.01 -b
+
+NW/SWG pairs a kernel flags go to the exact host oracle.  Other configs
+(GenASM, long reads, SWG int8 cells the reference tier cannot prove, a
+negative match cost) exit 2 with the ROADMAP item that will port them.  ``-d`` caps the device count at 1
 (multi-GPU is ROADMAP Queue 1 item 9); ``--backend xla``, ``--profile``
 and ``--energy`` are not ported yet.
 """

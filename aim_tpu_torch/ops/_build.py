@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``aim_tpu_torch/csrc/*.cu``).
 
-``nvcc`` compiles every source into one shared library with a plain C
+``nvcc`` compiles every source to an object, one process a source, all
+started together, and links them into one shared library with a plain C
 interface, ``aim_tpu_torch/_build/libaimk_<hash>.so``, keyed on a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once.  The library is loaded with ``ctypes``; wrappers pass
-device pointers and the current stream as ``c_void_p``.
+the sources (headers included) and flags, so an edited source rebuilds
+and an unchanged one loads at once.  The library is loaded with
+``ctypes``; wrappers pass device pointers and the current stream as
+``c_void_p``.
 
 Nothing here runs at import time.  A failed build raises with the
 compiler's output; there is no fallback.
@@ -24,8 +26,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -66,15 +68,39 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + \
-        [s for s in sources() if s.endswith(".cu")]
+    nvcc = _nvcc()
+    tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
-    os.replace(tmp, so)
+    jobs = []
+    for src in sources():
+        if not src.endswith(".cu"):
+            continue
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc] + NVCC_FLAGS + ["-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp] + objs
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}): "
+                               f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_seconds = time.perf_counter() - t0
     return so
 
@@ -91,6 +117,12 @@ def load():
         lib.aim_wfa2_forward.argtypes = [vp, vp, vp, vp, vp, vp, cl,
                                          ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                          ci, vp]
+        # pointers, n, then width packed R C L NRL DS, the costs, the
+        # flags check_ovf backtrace planes_smem, and the stream
+        lib.aim_nw_forward.restype = ci
+        lib.aim_nw_forward.argtypes = [vp] * 6 + [cl] + [ci] * 13 + [vp]
+        lib.aim_swg_forward.restype = ci
+        lib.aim_swg_forward.argtypes = [vp] * 6 + [cl] + [ci] * 17 + [vp]
         lib.aim_cuda_error_string.restype = ctypes.c_char_p
         lib.aim_cuda_error_string.argtypes = [ci]
         _LIB = lib

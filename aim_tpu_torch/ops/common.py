@@ -1,4 +1,5 @@
-"""Shared host-side helpers: padding arithmetic, 2-bit packing, upload.
+"""Shared host-side helpers: padding arithmetic, 2-bit packing, upload,
+and the checks every kernel wrapper makes on its pair tensors.
 
 ``round_up`` and ``pack_seqs`` are copies of ``aim_tpu.ops.band.round_up``
 and ``aim_tpu.ops.common.pack_seqs`` (that package imports jax at module
@@ -75,3 +76,31 @@ def to_device_batch(pats, txts, plens, tlens, device):
     return tuple(torch.from_numpy(a).pin_memory().to(device,
                                                       non_blocking=True)
                  for a in arrs)
+
+
+def check_pair_tensors(pats, txts, plens, tlens, who: str):
+    """Raise unless pats/txts are 2-D uint8 of one nonzero width and
+    plens/tlens 1-D int32, all contiguous, with one row count, on one CPU
+    or CUDA device: what every kernel wrapper accepts."""
+    for name, t, dt, nd in (("pats", pats, torch.uint8, 2),
+                            ("txts", txts, torch.uint8, 2),
+                            ("plens", plens, torch.int32, 1),
+                            ("tlens", tlens, torch.int32, 1)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{who}: {name} must be a torch.Tensor")
+        if t.dtype != dt or t.dim() != nd:
+            raise TypeError(f"{who}: {name} must be a {nd}-D {dt} tensor, "
+                            f"got {t.dim()}-D {t.dtype}")
+        if t.device != pats.device:
+            raise ValueError(f"{who}: {name} is on {t.device}, pats on "
+                             f"{pats.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+        if t.shape[0] != pats.shape[0]:
+            raise ValueError(f"{who}: {name} has {t.shape[0]} rows, pats "
+                             f"{pats.shape[0]}")
+    if txts.shape[1] != pats.shape[1] or pats.shape[1] == 0:
+        raise ValueError(f"{who}: pats {tuple(pats.shape)} and txts "
+                         f"{tuple(txts.shape)} need one nonzero width")
+    if pats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who} runs on cuda or cpu, not {pats.device}")

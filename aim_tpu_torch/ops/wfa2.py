@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from aim_tpu.config import AlignConfig
-from aim_tpu_torch.ops.common import round_up
+from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 
 NULL = -16384       # int16 offset sentinel (reference OFFSET_NULL_16)
 BIG = 2 ** 20       # "infinity" of the adaptive-reduce min/max
@@ -442,31 +442,6 @@ def _reference_chunk(pats, txts, plens, tlens, cfg, packed):  # noqa: C901
 # public wrapper
 # ---------------------------------------------------------------------------
 
-def _check(pats, txts, plens, tlens, cfg):
-    if not vmem_fit2(cfg):
-        raise ValueError(f"config outside the WFA short-read tier: {cfg}")
-    for name, t, dt, nd in (("pats", pats, torch.uint8, 2),
-                            ("txts", txts, torch.uint8, 2),
-                            ("plens", plens, torch.int32, 1),
-                            ("tlens", tlens, torch.int32, 1)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dtype != dt or t.dim() != nd:
-            raise TypeError(f"{name} must be a {nd}-D {dt} tensor, got "
-                            f"{t.dim()}-D {t.dtype}")
-        if t.device != pats.device:
-            raise ValueError(f"{name} is on {t.device}, pats on "
-                             f"{pats.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.shape[0] != pats.shape[0]:
-            raise ValueError(f"{name} has {t.shape[0]} rows, pats "
-                             f"{pats.shape[0]}")
-    if txts.shape[1] != pats.shape[1] or pats.shape[1] == 0:
-        raise ValueError(f"pats {tuple(pats.shape)} and txts "
-                         f"{tuple(txts.shape)} need one nonzero width")
-
-
 def wfa_forward2(pats, txts, plens, tlens, *, cfg: AlignConfig,
                  packed: bool = False):
     """WFA2 forward + on-device backtrace -> records [n, smax+4] int32.
@@ -476,13 +451,13 @@ def wfa_forward2(pats, txts, plens, tlens, *, cfg: AlignConfig,
     tensors launch csrc/wfa2.cu and raise if it fails; CPU tensors run
     ``wfa2_reference``."""
     global launch_count
-    _check(pats, txts, plens, tlens, cfg)
+    if not vmem_fit2(cfg):
+        raise ValueError(f"config outside the WFA short-read tier: {cfg}")
+    check_pair_tensors(pats, txts, plens, tlens, "wfa_forward2")
     dev = pats.device
     if dev.type == "cpu":
         return wfa2_reference(pats, txts, plens, tlens, cfg=cfg,
                               packed=packed)
-    if dev.type != "cuda":
-        raise ValueError(f"wfa_forward2 runs on cuda or cpu, not {dev}")
     from aim_tpu_torch.ops import _build
     lib = _build.load()
     n = pats.shape[0]

@@ -33,26 +33,33 @@ def _cfg(argv):
 
 def _oracle_file(path, cfg, n):
     p, t, pl, tl = nat.parse_pairs(SAMPLE, n, cfg.read_size)
-    sc, ops, b, e = nat.wfa_align(p, t, pl, tl, mismatch=cfg.mismatch,
-                                  gap_o=cfg.gap_o, gap_e=cfg.gap_e,
-                                  max_score=cfg.max_score,
-                                  adaptive=cfg.adaptive,
-                                  backtrace=cfg.backtrace,
-                                  overflow_backtrace=cfg.overflow_backtrace)
+    if cfg.algo == "wfa":
+        sc, ops, b, e = nat.wfa_align(
+            p, t, pl, tl, mismatch=cfg.mismatch, gap_o=cfg.gap_o,
+            gap_e=cfg.gap_e, max_score=cfg.max_score, adaptive=cfg.adaptive,
+            backtrace=cfg.backtrace,
+            overflow_backtrace=cfg.overflow_backtrace)
+    else:
+        sc, ops, b, e = tapi._oracle_align(p, t, pl, tl, cfg)
     nat.emit_output(path, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
                     cfg.backtrace)
     return sc
 
 
-@pytest.mark.parametrize("err,flags", [
-    ("0.01", ["-b", "-r"]),
-    ("0.01", ["-b"]),
-    ("0.01", ["-r"]),
-    ("0.005", ["-b", "-r", "--overflow-backtrace"]),
+@pytest.mark.parametrize("algo,err,flags", [
+    pytest.param("wfa", "0.01", ["-b", "-r"], id="0.01-flags0"),
+    pytest.param("wfa", "0.01", ["-b"], id="0.01-flags1"),
+    pytest.param("wfa", "0.01", ["-r"], id="0.01-flags2"),
+    pytest.param("wfa", "0.005", ["-b", "-r", "--overflow-backtrace"],
+                 id="0.005-flags3"),
+    pytest.param("nw", "0.01", ["-b"], id="nw-b"),
+    pytest.param("nw", "0.01", [], id="nw"),
+    pytest.param("swg", "0.01", ["-b"], id="swg-b"),
+    pytest.param("swg", "0.01", [], id="swg"),
 ])
-def test_align_file_cpu_matches_oracle_and_jax(tmp_path, err, flags):
+def test_align_file_cpu_matches_oracle_and_jax(tmp_path, algo, err, flags):
     from aim_tpu.api import align_file as jax_align_file
-    argv = ["wfa", "-i", SAMPLE, "-o", "unused", "-l", "100", "-e", err,
+    argv = [algo, "-i", SAMPLE, "-o", "unused", "-l", "100", "-e", err,
             "-n", str(N_SAMPLE)] + flags
     cfg = _cfg(argv)
     got, jx, ref = (str(tmp_path / f) for f in ("port", "jax", "oracle"))
@@ -116,7 +123,11 @@ def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["nw", "-l", "100", "-e", "0.01"], "ROADMAP Queue 1 item 3"),
+    # NW past the short-read tier: the streamed tier (id kept from when
+    # the NW short-read tier itself was unported)
+    pytest.param(["nw", "-l", "2500", "-e", "0.01", "--variant", "hbm"],
+                 "ROADMAP Queue 1 item 7",
+                 id="argv0-ROADMAP Queue 1 item 3"),
     (["genasm", "-l", "100", "-e", "0.01"], "ROADMAP Queue 1 item 4"),
     (["wfa", "-l", "1000", "-e", "0.01"], "ROADMAP Queue 1 item 6"),
     (["wfa", "-l", "100", "-e", "0.01", "--backend", "xla"],
@@ -125,6 +136,9 @@ def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
      "ROADMAP Queue 1 item 10"),
     (["wfa", "-l", "100", "-e", "0.01", "--profile", "p"],
      "ROADMAP Queue 1 item 10"),
+    # a negative match cost voids K3's band argument: the exact XLA tier
+    (["swg", "-l", "100", "-e", "0.01", "-m", "-1"],
+     "ROADMAP Queue 1 item 5"),
 ])
 def test_cli_rejects_unported(tmp_path, capsys, argv, needle):
     rc = tcli.main(argv[:1] + ["-i", SAMPLE, "-o", str(tmp_path / "o"),
@@ -144,15 +158,15 @@ def test_cli_reference_messages(capsys):
 
 
 @pytest.mark.parametrize("cfg", [
-    derive_config("nw", 100, 0.01, backtrace=True),
-    derive_config("swg", 100, 0.01, backtrace=True),
+    derive_config("nw", 2500, 0.01, backtrace=True, variant="hbm"),
+    derive_config("swg", 100, 0.01, match=-1, backtrace=True),
     derive_config("wfa", 1000, 0.01, backtrace=True, adaptive=True),
     AlignConfig(algo="wfa", read_size=112, max_score=80),
 ], ids=["nw", "swg", "wfa_l1000", "wfa_smax80"])
 def test_unported_config_raises(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kernels.forward_fn(cfg)
-    p, t, pl, tl = nat.parse_pairs(SAMPLE, 8, 112)
+    p, t, pl, tl = nat.parse_pairs(SAMPLE, 8, cfg.read_size)
     with pytest.raises(NotImplementedError):
         tapi.align(p, t, pl, tl, cfg, device="cpu")
 
@@ -190,6 +204,7 @@ def test_port_import_loads_no_jax():
     code = ("import sys; pre = 'jax' in sys.modules\n"
             "import aim_tpu_torch, aim_tpu_torch.api, aim_tpu_torch.cli\n"
             "import aim_tpu_torch.ops.wfa2, aim_tpu_torch.ops.kernels\n"
+            "import aim_tpu_torch.ops.nw, aim_tpu_torch.ops.swg\n"
             "import aim_tpu_torch.ops._build, aim_tpu_torch.ops.common\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib') or m.startswith(('aim_tpu.ops', "

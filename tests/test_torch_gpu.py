@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and main path on the card (``gpu`` tests).
+"""The port's CUDA kernels and CLI paths on the card (``gpu`` tests).
 
 They skip on a host without CUDA.  This file imports no jax, so it also
 runs on a GPU host without it; there, skip tests/conftest.py (which
@@ -17,10 +17,12 @@ import torch
 
 import aim_tpu.native as nat
 from aim_tpu.cli import build_parser, config_from_args
+from aim_tpu_torch import api as tapi
 from aim_tpu_torch import cli as tcli
-from aim_tpu_torch.ops import common, wfa2
-from torch_cases import (CASES, MAIN, SAMPLE_N, case, datagen_batch,
-                         garbage_padded)
+from aim_tpu_torch.ops import common, nw, swg, wfa2
+from torch_cases import (CASES, MAIN, NWSWG_CASES, SAMPLE_N, case,
+                         datagen_batch, garbage_padded, nwswg_case,
+                         nwswg_records)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "data", "sample-l100-e1-2K")
@@ -107,6 +109,70 @@ def test_cli_main_path_on_gpu(cuda_device, tmp_path, flags):
                                   max_score=cfg.max_score,
                                   adaptive=cfg.adaptive,
                                   backtrace=cfg.backtrace)
+    nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
+                    cfg.backtrace)
+    assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+def _band_kernel(dev, cfg, p, t, pl, tl, packed):
+    mod = nw if cfg.algo == "nw" else swg
+    args = common.to_device_batch(p, t, pl, tl, dev)
+    before = mod.launch_count
+    out = getattr(mod, f"{cfg.algo}_forward")(*args, cfg=cfg, packed=packed)
+    torch.cuda.synchronize()
+    assert mod.launch_count == before + 1
+    return out.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NWSWG_CASES)
+def test_cuda_band_kernel_matches_reference(cuda_device, name):
+    """K2/K3 records byte-equal to the plain version, flagged pairs too."""
+    cfg, p, t, pl, tl, packed = nwswg_case(name)
+    got = _band_kernel(cuda_device, cfg, p, t, pl, tl, packed)
+    np.testing.assert_array_equal(got, nwswg_records(cfg, p, t, pl, tl,
+                                                     packed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["nw", "swg"])
+def test_cuda_band_records_are_per_pair(cuda_device, algo):
+    """A shuffled batch gives the permuted records, one pair alone its row,
+    and bytes past the lengths change nothing."""
+    cfg = nwswg_case(f"{algo}_main_bt")[0]
+    p, t, pl, tl = datagen_batch(4093, seed=11)
+    t[::7] = t[::7][:, ::-1]          # flagged pairs in the mix
+    full = _band_kernel(cuda_device, cfg, p, t, pl, tl, False)
+    assert ((full[:, 0].astype(np.int32) >> 8) & 1).any()
+    perm = np.random.default_rng(1).permutation(len(pl))
+    shuf = _band_kernel(cuda_device, cfg, p[perm], t[perm], pl[perm],
+                        tl[perm], False)
+    np.testing.assert_array_equal(shuf, full[perm])
+    for i in (0, 7, 4092):
+        one = _band_kernel(cuda_device, cfg, p[i:i + 1], t[i:i + 1],
+                           pl[i:i + 1], tl[i:i + 1], False)
+        np.testing.assert_array_equal(one[0], full[i])
+    gp, gt = garbage_padded(p, t, pl, tl)
+    np.testing.assert_array_equal(
+        _band_kernel(cuda_device, cfg, gp, gt, pl, tl, False), full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["nw", "swg"])
+def test_cli_nwswg_on_gpu(cuda_device, tmp_path, algo):
+    """`nw -b` / `swg -b` on the sample: cmp-equal to the oracle, through
+    the kernel, no pair flagged."""
+    mod = nw if algo == "nw" else swg
+    out, ref, log = (str(tmp_path / f) for f in ("gpu", "oracle", "log"))
+    argv = [algo, "-i", SAMPLE, "-l", "100", "-e", "0.01",
+            "-n", str(SAMPLE_N), "-b"]
+    mod.reset_launch_count()
+    assert tcli.main(argv + ["-o", out, "--device-log", log, "-q"]) == 0
+    assert mod.launch_count > 0
+    assert "fallback=0" in open(log).read()
+    cfg = config_from_args(build_parser().parse_args(argv))
+    p, t, pl, tl = nat.parse_pairs(SAMPLE, SAMPLE_N, cfg.read_size)
+    sc, ops, b, e = tapi._oracle_align(p, t, pl, tl, cfg)
     nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
                     cfg.backtrace)
     assert open(out, "rb").read() == open(ref, "rb").read()

@@ -1,8 +1,8 @@
-"""Seeded K1 input cases shared by the port's CPU tests (against the JAX
-kernel) and its GPU tests (against the plain PyTorch version).  Imports
-no jax, so the GPU tests run on hosts without it.  Imported by its
-top-level name: pytest puts tests/ first on sys.path, and a ``tests``
-package installed elsewhere cannot shadow it then."""
+"""Seeded K1, K2 and K3 input cases shared by the port's CPU tests
+(against the JAX kernels) and its GPU tests (against the plain PyTorch
+versions).  Imports no jax, so the GPU tests run on hosts without it.
+Imported by its top-level name: pytest puts tests/ first on sys.path, and
+a ``tests`` package installed elsewhere cannot shadow it then."""
 
 import numpy as np
 import torch
@@ -89,3 +89,108 @@ def torch_records(fn, cfg, p, t, pl, tl, packed):
               T(np.ascontiguousarray(pl, np.int32)),
               T(np.ascontiguousarray(tl, np.int32)), cfg=cfg,
               packed=packed).numpy()
+
+
+# ---- K2 (NW) and K3 (SWG) ----
+
+NW_MAIN = derive_config("nw", 100, 0.01, backtrace=True)
+SWG_MAIN = derive_config("swg", 100, 0.01, backtrace=True)
+
+NWSWG_CASES = ["nw_main_bt", "nw_main_nobt", "swg_main_bt", "swg_main_nobt",
+               "nw_r40_bal_bt", "nw_r40_bal_nobt", "nw_r40_unbal_bt",
+               "nw_r40_unbal_nobt", "nw_r40_cheap_gaps", "swg_r40_bal",
+               "swg_r40_unbal", "nw_packed", "swg_packed", "nw_acgtn",
+               "swg_acgtn", "nw_flag_heavy", "swg_flag_heavy", "nw_edges",
+               "swg_edges", "nw_ovf_check", "swg_ovf_check", "swg_int16",
+               "nw_l128"]
+
+EDGE_PAIRS = [("", ""), ("ACGT", ""), ("", "ACGTAC"), ("A", "A"),
+              ("AC", "A"), ("ACG", "A"), ("A" * 100, "A" * 100),
+              ("A" * 100, "T" * 100), ("ACGTACGTAC" * 10, "ACGTACGTA" * 10)]
+
+
+def nwswg_case(name):
+    """(cfg, pats, txts, plens, tlens, packed) of one named K2/K3 case."""
+    algo = name.split("_")[0]
+    main = NW_MAIN if algo == "nw" else SWG_MAIN
+    if name.endswith(("main_bt", "main_nobt")):
+        cfg = main.replace(backtrace=name.endswith("_bt"))
+        return (cfg, *datagen_batch(128, seed=1), False)
+    if name.startswith("nw_r40"):
+        # tests/test_kernels_pallas.py: balanced or not, with or without
+        # backtrace; and the cheap-gap alias-chain regression
+        if name.endswith("cheap_gaps"):
+            cfg = AlignConfig(algo="nw", read_size=40, max_score=16,
+                              backtrace=True, gap_i=1, gap_d=1, mismatch=4)
+            pairs = random_pairs(seed=101, n=256, max_len=32, balanced=False)
+        else:
+            cfg = AlignConfig(algo="nw", read_size=40, max_score=10,
+                              backtrace=name.endswith("_bt"), gap_i=2,
+                              gap_d=3, mismatch=3)
+            pairs = random_pairs(seed=11, n=128, max_len=32,
+                                 balanced="_bal_" in name)
+        return (cfg, *pack(pairs, 40), False)
+    if name.startswith("swg_r40"):
+        cfg = AlignConfig(algo="swg", read_size=40, max_score=26,
+                          backtrace=True, match=0, mismatch=3, gap_o=4,
+                          gap_e=1)
+        pairs = random_pairs(seed=23, n=128, max_len=32,
+                             balanced=name.endswith("_bal"))
+        return (cfg, *pack(pairs, 40), False)
+    if name.endswith("packed"):
+        p, t, pl, tl = datagen_batch(128, seed=2)
+        pp, pt, ok = common.pack_seqs(p, t, pl, tl, main.read_size)
+        assert ok
+        return main, pp, pt, pl, tl, True
+    if name == "nw_acgtn":
+        # the R = 96 NW row of tools/fuzz_kernels.py (its `hbm` variant
+        # lands on K2: the NW gate ignores the variant), 5 symbols
+        cfg = AlignConfig(algo="nw", read_size=96, max_score=24, gap_i=3,
+                          gap_d=2, mismatch=2, variant="hbm", backtrace=True)
+        pairs = random_pairs(seed=5, n=128, max_len=88, balanced=False,
+                             alphabet="ACGTN")
+        return (cfg, *pack(pairs, 96), False)
+    if name == "swg_acgtn":
+        pairs = random_pairs(seed=5, n=128, max_len=104, balanced=False,
+                             alphabet="ACGTN")
+        return (main, *pack(pairs, main.read_size), False)
+    if name.endswith("flag_heavy"):
+        # 10 edits on 100 bp: the band flags nearly every pair
+        return (main, *datagen.generate_pairs(128, 100, 0.1, read_size=112,
+                                              seed=3), False)
+    if name.endswith("edges"):
+        return (main, *pack(EDGE_PAIRS * 4, main.read_size), False)
+    if name == "nw_ovf_check":
+        # (2R+2) * 200 > 32767 compiles the int16 range check in
+        cfg = NW_MAIN.replace(mismatch=200, gap_i=150, gap_d=150)
+        return (cfg, *datagen.generate_pairs(128, 100, 0.05, read_size=112,
+                                             seed=4), False)
+    if name == "swg_ovf_check":
+        # int8-sound and admitted, but stored max + margin = 129 > 127
+        cfg = SWG_MAIN.replace(max_score=9)
+        return (cfg, *datagen.generate_pairs(128, 100, 0.03, read_size=112,
+                                             seed=4), False)
+    if name == "swg_int16":
+        # tools/fuzz_kernels.py :36-37 costs on the int16-cell variant
+        cfg = AlignConfig(algo="swg", read_size=48, max_score=60, match=0,
+                          mismatch=7, gap_o=2, gap_e=3, variant="hbm",
+                          backtrace=True)
+        pairs = random_pairs(seed=7, n=128, max_len=40, balanced=False)
+        return (cfg, *pack(pairs, 48), False)
+    if name == "nw_l128":
+        # unit costs at MAX_SCORE 60: C = 62, a 128-lane band (4 lanes a
+        # thread in the CUDA kernel)
+        cfg = AlignConfig(algo="nw", read_size=96, max_score=60, gap_i=1,
+                          gap_d=1, mismatch=1, backtrace=True)
+        pairs = random_pairs(seed=9, n=64, max_len=88, balanced=False)
+        return (cfg, *pack(pairs, 96), False)
+    raise KeyError(name)
+
+
+def nwswg_records(cfg, p, t, pl, tl, packed, reference=True):
+    """K2/K3 plain version (or wrapper) on CPU tensors of numpy input."""
+    from aim_tpu_torch.ops import nw, swg
+    mod = nw if cfg.algo == "nw" else swg
+    fn = getattr(mod, f"{cfg.algo}_reference" if reference
+                 else f"{cfg.algo}_forward")
+    return torch_records(fn, cfg, p, t, pl, tl, packed)
