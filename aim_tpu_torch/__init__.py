@@ -10,7 +10,9 @@ device kernels are hand-written CUDA C++ for ``sm_90a`` under
 Ported so far: the short-read tiers of WFA / WFA-adaptive (the reference's
 ``ops/wfa_pallas2.py``; the main path
 ``python -m aim_tpu_torch.cli wfa -l 100 -e 0.01 -b -r``), NW
-(``ops/nw_pallas.py``) and SWG (``ops/swg_pallas.py``).  Every other
+(``ops/nw_pallas.py``), SWG (``ops/swg_pallas.py``) and GenASM
+(``ops/genasm_pallas.py``), and the WFA long-read tier
+(``ops/wfa_pallas_long.py``, reads of 1-16 kbp).  Every other
 configuration raises ``NotImplementedError`` naming its ROADMAP item.
 
 Importing this package never builds a kernel and never needs CUDA.

@@ -1,9 +1,10 @@
 """High-level alignment API of the port: batches, device phases, decode.
 
 The counterpart of ``aim_tpu/api.py`` for the kernel tiers the port has:
-pack the pairs, upload each chunk, run the kernel, pull the records,
-decode them by their grammar (WFA step records or NW/SWG packed runs)
-into scores and CIGARs with the native decoders, re-run the pairs a
+sort long reads by estimated difficulty, pack the pairs, pick the tier for
+the batch's alphabet, upload each chunk, run the kernel, pull the records,
+decode them by their grammar (WFA and GenASM step records or NW/SWG packed
+runs) into scores and CIGARs with the native decoders, re-run the pairs a
 kernel flags on the exact host oracle, emit the reference-format file.
 The host runtime (parser, record decoders, emitter, oracle) is
 ``aim_tpu.native``, shared with the reference package.
@@ -11,6 +12,7 @@ The host runtime (parser, record decoders, emitter, oracle) is
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -37,7 +39,7 @@ class AlignResult:
     t_kernel: float = 0.0
     t_retrieve: float = 0.0
     # pairs a kernel flagged (packed-run bit 8) and the exact host oracle
-    # re-ran; the WFA short-read tier never flags
+    # re-ran; WFA and GenASM never flag
     n_fallback: int = 0
 
 
@@ -56,38 +58,86 @@ def _device_memory_budget(device: torch.device) -> int:
 
 
 def _memory_batch_cap(cfg: AlignConfig, device: torch.device,
-                      budget_bytes: int | None = None) -> int:
+                      budget_bytes: int | None = None,
+                      packed_ok: bool = True) -> int:
     """Pairs per chunk that fit the device budget, at the per-pair
     footprint of the kernel that serves the config (uploads, records,
     global scratch)."""
     if budget_bytes is None:
         budget_bytes = _device_memory_budget(device)
-    per_pair = kernels.forward_fn(cfg).device_bytes_per_pair
+    per_pair = kernels.forward_fn(cfg, packed_ok).device_bytes_per_pair
     return max(256, budget_bytes // per_pair)
 
 
-def _plan_bs(cfg: AlignConfig, n: int, device: torch.device) -> int:
+def _plan_bs(cfg: AlignConfig, n: int, device: torch.device,
+             packed_ok: bool = True) -> int:
     """Chunk size: cfg.batch_pairs, capped by device memory and by the
     batch itself, rounded to 8."""
-    bs = min(cfg.batch_pairs, _memory_batch_cap(cfg, device), round_up(n, 8))
+    bs = min(cfg.batch_pairs,
+             _memory_batch_cap(cfg, device, packed_ok=packed_ok),
+             round_up(n, 8))
     return max(round_up(bs, 8), 8)
+
+
+def _difficulty_order(pats, txts, plens, tlens):
+    """Stable ascending sort order by a cheap edit-distance proxy
+    (subsampled diagonal Hamming count + length skew), copied from
+    ``aim_tpu/api.py``: pairs of one chunk then end near one score, and
+    the chunk's slowest pair sets its time.  Column subsampling (<= 512
+    sampled positions) keeps the host pass cheap at long read lengths."""
+    pl = np.asarray(plens).astype(np.int64)
+    tl = np.asarray(tlens).astype(np.int64)
+    step = max(1, pats.shape[1] // 512)
+    pos = np.arange(0, pats.shape[1], step)
+    valid = pos[None, :] < np.minimum(pl, tl)[:, None]
+    ham = ((pats[:, pos] != txts[:, pos]) & valid).sum(1).astype(np.int64)
+    return np.argsort(ham * step + np.abs(pl - tl), kind="stable")
 
 
 def align(pats, txts, plens, tlens, cfg: AlignConfig,
           device="cuda") -> AlignResult:
     """Align a pair batch ([n, R] uint8 pats/txts, [n] int32 lengths) on
     ``device``.  Returns scores (+ ops buffers when cfg.backtrace).
-    Device work runs in cfg.batch_pairs chunks."""
+    Device work runs in cfg.batch_pairs chunks.
+
+    As in ``aim_tpu.api.align``, long reads (read_size >= 1024, more than
+    128 pairs) run in estimated-difficulty order; AIM_TPU_SORT=0 turns
+    that off, =1 on for any read size.  The output order is the input's;
+    the sort's host time counts in ``t_load``."""
     cfg.validate()
+    plens = np.ascontiguousarray(plens, np.int32)
+    tlens = np.ascontiguousarray(tlens, np.int32)
+    n = pats.shape[0]
+    if n and max(int(plens.max()), int(tlens.max())) > cfg.read_size:
+        raise ValueError(f"sequence longer than read_size={cfg.read_size}")
+    sort_env = os.environ.get("AIM_TPU_SORT", "")
+    sort_on = sort_env == "1" if sort_env in ("0", "1") \
+        else cfg.read_size >= 1024
+    if not (sort_on and n > 128):
+        return _align_impl(pats, txts, plens, tlens, cfg, device)
+    t0 = time.perf_counter()
+    order = _difficulty_order(pats, txts, plens, tlens)
+    t_sort = time.perf_counter() - t0
+    res = _align_impl(pats[order], txts[order], plens[order], tlens[order],
+                      cfg, device)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(n)
+    return AlignResult(
+        res.scores[inv],
+        res.ops[inv] if res.ops is not None else None,
+        res.begin[inv] if res.begin is not None else None,
+        res.end[inv] if res.end is not None else None,
+        t_load=res.t_load + t_sort, t_kernel=res.t_kernel,
+        t_retrieve=res.t_retrieve, n_fallback=res.n_fallback)
+
+
+def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
+                device) -> AlignResult:
     device = torch.device(device)
-    fwd = kernels.forward_fn(cfg)
+    kernels.forward_fn(cfg)  # an unported config raises before any work
     n = pats.shape[0]
     R = cfg.read_size
     max_ops = 2 * R
-    plens = np.ascontiguousarray(plens, np.int32)
-    tlens = np.ascontiguousarray(tlens, np.int32)
-    if n and max(int(plens.max()), int(tlens.max())) > R:
-        raise ValueError(f"sequence longer than read_size={R}")
 
     scores = np.zeros(n, np.int32)
     ops = np.zeros((n, max_ops), np.uint8) if cfg.backtrace else None
@@ -97,10 +147,12 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     if n == 0:
         return res
 
-    # 2-bit-pack the uploads when the batch alphabet allows it; the
-    # kernel compares raw bytes otherwise.
+    # 2-bit-pack the uploads when the batch alphabet allows it; then pick
+    # the tier for it (aim_tpu/api.py:555-570): K1 and K2/K3 compare raw
+    # bytes too, K5 takes its byte layout, K4 needs the packed codes.
     up_pats, up_txts, packed = pack_seqs(pats, txts, plens, tlens, R)
-    bs = _plan_bs(cfg, n, device)
+    fwd = kernels.forward_fn(cfg, packed_ok=packed)
+    bs = _plan_bs(cfg, n, device, packed_ok=packed)
     starts = list(range(0, n, bs))
     records = []
     for w0 in range(0, len(starts), WAVE):
@@ -129,12 +181,15 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     for lo, rec in zip(starts, records):
         chunk = slice(lo, lo + rec.shape[0])
         flagged = None
-        if fwd.records == kernels.STEP_RECORDS:
-            # WFA: row smax+3 holds the score (no fallback conditions)
-            scores[chunk] = rec[:, smax + 3]
+        if fwd.records in (kernels.STEP_RECORDS, kernels.GENASM_RECORDS):
+            # WFA: row smax+3 holds the score; GenASM: the same grammar
+            # with one level row a text position, the score in row R+3
+            # (no fallback conditions)
+            levels = smax if fwd.records == kernels.STEP_RECORDS else R
+            scores[chunk] = rec[:, levels + 3]
             if cfg.backtrace:
                 _, o, b, e = native.wfa_steps_to_ops(
-                    rec, plens[chunk], tlens[chunk], max_score=smax,
+                    rec, plens[chunk], tlens[chunk], max_score=levels,
                     max_ops=max_ops)
                 ops[chunk], begin[chunk], end[chunk] = o, b, e
         else:

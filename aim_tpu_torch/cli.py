@@ -7,16 +7,20 @@ The same flags, config derivation and output as ``aim_tpu.cli``, whose
         -n 40000 -b -r
 
 Ported so far: the short-read tiers of WFA / WFA-adaptive (kernel K1), NW
-(K2) and SWG (K3), e.g.
+(K2), SWG (K3) and GenASM (K4), and the WFA long-read tier (K5, reads of
+1-16 kbp), e.g.
 
     python -m aim_tpu_torch.cli nw -i pairs.txt -o out -l 100 -e 0.01 -b
-    python -m aim_tpu_torch.cli swg -i pairs.txt -o out -l 100 -e 0.01 -b
+    python -m aim_tpu_torch.cli genasm -i pairs.txt -o out -l 100 -e 0.01 -b
+    python -m aim_tpu_torch.cli wfa -i pairs.txt -o out -l 10000 -e 0.01 \
+        -b -r --variant hbm
 
 NW/SWG pairs a kernel flags go to the exact host oracle.  Other configs
-(GenASM, long reads, SWG int8 cells the reference tier cannot prove, a
-negative match cost) exit 2 with the ROADMAP item that will port them.  ``-d`` caps the device count at 1
-(multi-GPU is ROADMAP Queue 1 item 9); ``--backend xla``, ``--profile``
-and ``--energy`` are not ported yet.
+(the NW/SWG streamed and GenASM long tiers, WFA past the long-read tier's
+smax 1023, SWG int8 cells the reference tier cannot prove, a negative
+match cost) exit 2 with the ROADMAP item that will port them.  ``-d``
+caps the device count at 1 (multi-GPU is ROADMAP Queue 1 item 9);
+``--backend xla``, ``--profile`` and ``--energy`` are not ported yet.
 """
 
 from __future__ import annotations

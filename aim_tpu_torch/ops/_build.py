@@ -109,24 +109,35 @@ def load():
     """Build if needed, then load the library and declare its functions."""
     global _LIB
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(build())
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.aim_wfa2_forward.restype = ci
-        lib.aim_wfa2_forward.argtypes = [vp, vp, vp, vp, vp, vp, cl,
-                                         ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                                         ci, vp]
-        # pointers, n, then width packed R C L NRL DS, the costs, the
-        # flags check_ovf backtrace planes_smem, and the stream
-        lib.aim_nw_forward.restype = ci
-        lib.aim_nw_forward.argtypes = [vp] * 6 + [cl] + [ci] * 13 + [vp]
-        lib.aim_swg_forward.restype = ci
-        lib.aim_swg_forward.argtypes = [vp] * 6 + [cl] + [ci] * 17 + [vp]
-        lib.aim_cuda_error_string.restype = ctypes.c_char_p
-        lib.aim_cuda_error_string.argtypes = [ci]
-        _LIB = lib
-        return lib
+        if _LIB is None:
+            _LIB = declare(ctypes.CDLL(build()))
+        return _LIB
+
+
+def declare(lib):
+    """Declare the C interface of a library built from csrc/ (the argument
+    and return types ctypes needs to pass 64-bit pointers)."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.aim_wfa2_forward.restype = ci
+    lib.aim_wfa2_forward.argtypes = [vp, vp, vp, vp, vp, vp, cl,
+                                     ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                                     ci, vp]
+    # pointers, n, then width packed R C L NRL DS, the costs, the flags
+    # check_ovf backtrace planes_smem, and the stream
+    lib.aim_nw_forward.restype = ci
+    lib.aim_nw_forward.argtypes = [vp] * 6 + [cl] + [ci] * 13 + [vp]
+    lib.aim_swg_forward.restype = ci
+    lib.aim_swg_forward.argtypes = [vp] * 6 + [cl] + [ci] * 17 + [vp]
+    # pointers, n, then width R k Rp backtrace hist_smem, and the stream
+    lib.aim_genasm_forward.restype = ci
+    lib.aim_genasm_forward.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [vp]
+    # pointers, n, then width packed smax R, the costs, the flags
+    # adaptive backtrace, and the stream
+    lib.aim_wfa_long_forward.restype = ci
+    lib.aim_wfa_long_forward.argtypes = [vp] * 6 + [cl] + [ci] * 9 + [vp]
+    lib.aim_cuda_error_string.restype = ctypes.c_char_p
+    lib.aim_cuda_error_string.argtypes = [ci]
+    return lib
 
 
 def error_string(code: int) -> str:

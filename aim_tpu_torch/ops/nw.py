@@ -424,8 +424,18 @@ def _nw_chunk(pats, txts, plens, tlens, cfg, packed):  # noqa: C901
 # public wrapper
 # ---------------------------------------------------------------------------
 
-def launch_band(kind, cfg, n_planes, DS, pats, txts, plens, tlens, packed,
-                costs):
+def kernel_args(cfg: AlignConfig):
+    """(DS, costs) of csrc/nw.cu: the deletion chain's scan depth, then
+    gap_i, gap_d, mismatch and whether the int16 range check is compiled
+    in ((2R+2) times the largest cost past INT16_MAX)."""
+    check_ovf = (2 * cfg.read_size + 2) * max(cfg.gap_i, cfg.gap_d,
+                                              cfg.mismatch) > INT16_MAX
+    DS = (1 << scan_rounds(cfg, cfg.gap_d)) - 1
+    return DS, (cfg.gap_i, cfg.gap_d, cfg.mismatch, int(check_ovf))
+
+
+def launch_band(kind, cfg, n_planes, DS, costs, pats, txts, plens, tlens,
+                packed):
     """Allocate the record (and the plane scratch when the planes do not
     fit in shared memory) and launch ``aim_<kind>_forward`` from csrc/ on
     the current stream.  Raises if the launch fails."""
@@ -472,12 +482,8 @@ def nw_forward(pats, txts, plens, tlens, *, cfg: AlignConfig,
     check_pair_tensors(pats, txts, plens, tlens, "nw_forward")
     if pats.device.type == "cpu":
         return nw_reference(pats, txts, plens, tlens, cfg=cfg, packed=packed)
-    R = cfg.read_size
-    check_ovf = (2 * R + 2) * max(cfg.gap_i, cfg.gap_d, cfg.mismatch) \
-        > INT16_MAX
-    DS = (1 << scan_rounds(cfg, cfg.gap_d)) - 1
-    rec = launch_band("nw", cfg, 3, DS, pats, txts, plens, tlens, packed,
-                      (cfg.gap_i, cfg.gap_d, cfg.mismatch, int(check_ovf)))
+    rec = launch_band("nw", cfg, 3, *kernel_args(cfg), pats, txts, plens,
+                      tlens, packed)
     if pats.shape[0]:
         launch_count += 1
     return rec

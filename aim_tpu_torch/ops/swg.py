@@ -272,6 +272,15 @@ def _swg_chunk(pats, txts, plens, tlens, cfg, packed):  # noqa: C901
 # public wrapper
 # ---------------------------------------------------------------------------
 
+def kernel_args(cfg: AlignConfig):
+    """(DS, costs) of csrc/swg.cu: the gap chain's scan depth, then the
+    costs, max_score and the cell limits of ``cell_limits``."""
+    cmax, margin, check_ovf = cell_limits(cfg)
+    DS = (1 << scan_rounds(cfg, cfg.gap_e)) - 1
+    return DS, (cfg.match, cfg.mismatch, cfg.gap_o, cfg.gap_e,
+                cfg.max_score, cmax, margin, int(check_ovf))
+
+
 def swg_forward(pats, txts, plens, tlens, *, cfg: AlignConfig,
                 packed: bool = False):
     """Banded SWG forward + on-device traceback -> packed_runs [n, NRL]
@@ -284,12 +293,8 @@ def swg_forward(pats, txts, plens, tlens, *, cfg: AlignConfig,
     if pats.device.type == "cpu":
         return swg_reference(pats, txts, plens, tlens, cfg=cfg,
                              packed=packed)
-    cmax, margin, check_ovf = cell_limits(cfg)
-    DS = (1 << scan_rounds(cfg, cfg.gap_e)) - 1
-    rec = launch_band("swg", cfg, N_PLANES, DS, pats, txts, plens, tlens,
-                      packed, (cfg.match, cfg.mismatch, cfg.gap_o,
-                               cfg.gap_e, cfg.max_score, cmax, margin,
-                               int(check_ovf)))
+    rec = launch_band("swg", cfg, N_PLANES, *kernel_args(cfg), pats, txts,
+                      plens, tlens, packed)
     if pats.shape[0]:
         launch_count += 1
     return rec

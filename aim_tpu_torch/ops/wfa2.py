@@ -15,7 +15,7 @@ byte (``native.wfa_steps_to_ops`` expands it):
       row  smax+2   final I stroke
       row  smax+3   score (smax+1 on overflow: no backtrace rows)
 
-Three entry points:
+Entry points:
 
   * ``wfa_forward2``   the public wrapper.  A CUDA tensor launches the
                        hand-written kernel ``csrc/wfa2.cu`` (or raises); a
@@ -23,6 +23,8 @@ Three entry points:
   * ``wfa2_reference`` the plain PyTorch version: the same function,
                        vectorised over a pair dimension and a diagonal
                        dimension, looping over scores and levels.
+  * ``wfa_records``    its recursion and walk, given an extend; K5's plain
+                       version (``ops/wfa_long.py``) runs it too.
   * ``vmem_fit2``      the reference tier's admission gate, reproduced
                        exactly so every config routes as it does in JAX.
 """
@@ -176,21 +178,38 @@ def wfa2_reference(pats, txts, plens, tlens, *, cfg: AlignConfig,
     return out
 
 
-def _reference_chunk(pats, txts, plens, tlens, cfg, packed):  # noqa: C901
+def _reference_chunk(pats, txts, plens, tlens, cfg, packed):
     smax, K, Rp = _geometry(cfg)
-    x, go, ge = cfg.mismatch, cfg.gap_o, cfg.gap_e
     n = pats.shape[0]
-    dev = pats.device
-    I32 = torch.int32
     if packed:
         pats, txts = _unpack(pats, n), _unpack(txts, n)
-    pats = _fit_width(pats, Rp).to(I32)
-    txts = _fit_width(txts, Rp).to(I32)
-    pl = plens.to(I32)
-    tl = tlens.to(I32)
+    pats = _fit_width(pats, Rp).to(torch.int32)
+    txts = _fit_width(txts, Rp).to(torch.int32)
+    pl = plens.to(torch.int32)
+    tl = tlens.to(torch.int32)
+    nm = _next_mismatch(pats, txts, pl, tl, smax, K, Rp)
+
+    def extend(m, do_ext):
+        ext = nm.gather(2, m.clamp(0, Rp - 1).long()[..., None])[..., 0]
+        return torch.where(do_ext & (m < Rp), ext, m)
+
+    return wfa_records(pl, tl, cfg, extend)
+
+
+def wfa_records(pl, tl, cfg, extend):  # noqa: C901
+    """The WFA recursion and level-walk backtrace of one pair batch, shared
+    by K1's and K5's plain versions: ``pl``/``tl`` [n] int32 lengths;
+    ``extend(m, do_ext)`` returns the offsets [n, K] of the diagonals
+    ``do_ext`` marks advanced to their first mismatch, the others as
+    they are.  Returns records [n, smax+4] int32."""
+    smax = cfg.max_score
+    K = 2 * smax + 1
+    x, go, ge = cfg.mismatch, cfg.gap_o, cfg.gap_e
+    n = pl.shape[0]
+    dev = pl.device
+    I32 = torch.int32
     ak = tl - pl                                   # alignment diagonal [n]
     kvec = torch.arange(K, device=dev, dtype=I32) - smax     # [K]
-    nm = _next_mismatch(pats, txts, pl, tl, smax, K, Rp)
 
     S2 = smax + 2
     hm = torch.full((S2, n, K), NULL, dtype=torch.int16, device=dev)
@@ -230,9 +249,7 @@ def _reference_chunk(pats, txts, plens, tlens, cfg, packed):  # noqa: C901
         inr = (col(kl) <= kvec) & (kvec <= col(kh))
 
         # extend
-        do_ext = col(active & ~m_null) & inr & (m >= 0) & (m < Rp)
-        ext = nm.gather(2, m.clamp(0, Rp - 1).long()[..., None])[..., 0]
-        offi = torch.where(do_ext, ext, m)
+        offi = extend(m, col(active & ~m_null) & inr & (m >= 0))
         hm[s] = offi.to(torch.int16)
 
         # adaptive reduce

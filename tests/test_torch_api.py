@@ -20,7 +20,7 @@ from aim_tpu.cli import build_parser, config_from_args
 from aim_tpu.config import AlignConfig, derive_config
 from aim_tpu_torch import api as tapi
 from aim_tpu_torch import cli as tcli
-from aim_tpu_torch.ops import kernels, wfa2
+from aim_tpu_torch.ops import genasm, kernels, wfa2, wfa_long
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "data", "sample-l100-e1-2K")
@@ -31,14 +31,18 @@ def _cfg(argv):
     return config_from_args(build_parser().parse_args(argv))
 
 
-def _oracle_file(path, cfg, n):
-    p, t, pl, tl = nat.parse_pairs(SAMPLE, n, cfg.read_size)
+def _oracle_file(path, cfg, n, src=SAMPLE):
+    p, t, pl, tl = nat.parse_pairs(src, n, cfg.read_size)
     if cfg.algo == "wfa":
         sc, ops, b, e = nat.wfa_align(
             p, t, pl, tl, mismatch=cfg.mismatch, gap_o=cfg.gap_o,
             gap_e=cfg.gap_e, max_score=cfg.max_score, adaptive=cfg.adaptive,
             backtrace=cfg.backtrace,
             overflow_backtrace=cfg.overflow_backtrace)
+    elif cfg.algo == "genasm":
+        sc, ops, b, e = nat.genasm_align(p, t, pl, tl,
+                                         max_score=cfg.max_score,
+                                         backtrace=cfg.backtrace)
     else:
         sc, ops, b, e = tapi._oracle_align(p, t, pl, tl, cfg)
     nat.emit_output(path, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
@@ -56,6 +60,8 @@ def _oracle_file(path, cfg, n):
     pytest.param("nw", "0.01", [], id="nw"),
     pytest.param("swg", "0.01", ["-b"], id="swg-b"),
     pytest.param("swg", "0.01", [], id="swg"),
+    pytest.param("genasm", "0.01", ["-b"], id="genasm-b"),
+    pytest.param("genasm", "0.01", [], id="genasm"),
 ])
 def test_align_file_cpu_matches_oracle_and_jax(tmp_path, algo, err, flags):
     from aim_tpu.api import align_file as jax_align_file
@@ -75,6 +81,74 @@ def test_align_file_cpu_matches_oracle_and_jax(tmp_path, algo, err, flags):
     body = open(got, "rb").read()
     assert body == open(ref, "rb").read()
     assert body == open(jx, "rb").read()
+
+
+@pytest.mark.parametrize("argv,n,gen_err", [
+    # 3 edits a pair against k = 2: most pairs overflow
+    (["genasm", "-l", "100", "-e", "0.01", "-b"], 300, 0.03),
+    (["genasm", "-l", "100", "-e", "0.01"], 300, 0.03),
+    # 160 pairs > 128 at read_size >= 1024: the difficulty sort is on
+    (["wfa", "-l", "1000", "-e", "0.01", "-b", "-r", "--variant", "hbm"],
+     160, 0.01),
+], ids=["genasm-b", "genasm", "wfa-l1000-hbm"])
+def test_align_file_cpu_generated(tmp_path, argv, n, gen_err):
+    """The GenASM tier (K4) and the WFA long-read tier (K5) file to file on
+    generated pairs: cmp-equal to the oracle."""
+    from aim_tpu import datagen
+    src = str(tmp_path / "pairs")
+    datagen.write_pair_file(src, n, int(argv[2]), gen_err, seed=3)
+    cfg = _cfg(argv[:1] + ["-i", src, "-o", "unused", "-n", str(n)]
+               + argv[1:])
+    assert kernels.forward_fn(cfg).forward in (genasm.genasm_forward,
+                                               wfa_long.wfa_forward_long)
+    got, ref = str(tmp_path / "port"), str(tmp_path / "oracle")
+    res = tapi.align_file(src, got, n, cfg, device="cpu", verbose=False)
+    osc = _oracle_file(ref, cfg, n, src)
+    assert res.n_fallback == 0
+    np.testing.assert_array_equal(res.scores, osc)
+    if cfg.algo == "genasm":
+        assert (osc > cfg.max_score).sum() > 10  # overflow pairs too
+    assert open(got, "rb").read() == open(ref, "rb").read()
+
+
+def test_difficulty_sort_as_reference(monkeypatch):
+    """The sort order is the reference's; output order is the input's
+    whether the sort runs or not; it runs for long reads past 128 pairs,
+    and AIM_TPU_SORT forces it either way."""
+    from aim_tpu import datagen
+    from aim_tpu.api import _difficulty_order
+    cfg = derive_config("wfa", 1000, 0.02, backtrace=True, adaptive=True,
+                        variant="hbm")
+    p, t, pl, tl = datagen.generate_pairs(150, 1000, 0.02,
+                                          read_size=cfg.read_size, seed=8)
+    order = tapi._difficulty_order(p, t, pl, tl)
+    np.testing.assert_array_equal(order, _difficulty_order(p, t, pl, tl))
+    assert (order != np.arange(len(pl))).any()
+    calls = []
+    impl = tapi._align_impl
+
+    def spy(pats, *a, **kw):
+        calls.append(pats.copy())
+        return impl(pats, *a, **kw)
+
+    monkeypatch.setattr(tapi, "_align_impl", spy)
+    outs = {}
+    for env in ("", "0", "1"):
+        monkeypatch.setenv("AIM_TPU_SORT", env)
+        outs[env] = tapi.align(p, t, pl, tl, cfg, device="cpu")
+    np.testing.assert_array_equal(calls[0], p[order])   # default: on
+    np.testing.assert_array_equal(calls[1], p)          # forced off
+    np.testing.assert_array_equal(calls[2], p[order])   # forced on
+    for res in outs.values():
+        np.testing.assert_array_equal(res.scores, outs["0"].scores)
+        np.testing.assert_array_equal(res.ops, outs["0"].ops)
+        np.testing.assert_array_equal(res.begin, outs["0"].begin)
+    # short reads: off by default
+    monkeypatch.setenv("AIM_TPU_SORT", "")
+    sp, st, spl, stl = nat.parse_pairs(SAMPLE, 200, 112)
+    tapi.align(sp, st, spl, stl, derive_config("wfa", 100, 0.01),
+               device="cpu")
+    np.testing.assert_array_equal(calls[-1], sp)
 
 
 def test_align_small_chunks_equal_one_chunk():
@@ -128,8 +202,16 @@ def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
     pytest.param(["nw", "-l", "2500", "-e", "0.01", "--variant", "hbm"],
                  "ROADMAP Queue 1 item 7",
                  id="argv0-ROADMAP Queue 1 item 3"),
-    (["genasm", "-l", "100", "-e", "0.01"], "ROADMAP Queue 1 item 4"),
-    (["wfa", "-l", "1000", "-e", "0.01"], "ROADMAP Queue 1 item 6"),
+    # GenASM past K4's k < 27 gate: the streamed tier (id kept from when
+    # the GenASM short-read tier itself was unported)
+    pytest.param(["genasm", "-l", "100", "-e", "0.14"],
+                 "ROADMAP Queue 1 item 7",
+                 id="argv1-ROADMAP Queue 1 item 4"),
+    # WFA past the long-read tier's smax 1023: the exact XLA tier (id kept
+    # from when the long-read tier itself was unported)
+    pytest.param(["wfa", "-l", "10000", "-e", "0.021", "--variant", "hbm"],
+                 "ROADMAP Queue 1 item 5",
+                 id="argv2-ROADMAP Queue 1 item 6"),
     (["wfa", "-l", "100", "-e", "0.01", "--backend", "xla"],
      "ROADMAP Queue 1 item 5"),
     (["wfa", "-l", "100", "-e", "0.01", "--energy"],
@@ -160,8 +242,11 @@ def test_cli_reference_messages(capsys):
 @pytest.mark.parametrize("cfg", [
     derive_config("nw", 2500, 0.01, backtrace=True, variant="hbm"),
     derive_config("swg", 100, 0.01, match=-1, backtrace=True),
-    derive_config("wfa", 1000, 0.01, backtrace=True, adaptive=True),
-    AlignConfig(algo="wfa", read_size=112, max_score=80),
+    # id kept from when 1 kbp WFA was unported: now past smax 1023
+    derive_config("wfa", 10000, 0.021, backtrace=True, adaptive=True,
+                  variant="hbm"),
+    # K1's gate rejects it and K5 takes it: the GenASM gate edge instead
+    AlignConfig(algo="genasm", read_size=112, max_score=27),
 ], ids=["nw", "swg", "wfa_l1000", "wfa_smax80"])
 def test_unported_config_raises(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -205,6 +290,7 @@ def test_port_import_loads_no_jax():
             "import aim_tpu_torch, aim_tpu_torch.api, aim_tpu_torch.cli\n"
             "import aim_tpu_torch.ops.wfa2, aim_tpu_torch.ops.kernels\n"
             "import aim_tpu_torch.ops.nw, aim_tpu_torch.ops.swg\n"
+            "import aim_tpu_torch.ops.genasm, aim_tpu_torch.ops.wfa_long\n"
             "import aim_tpu_torch.ops._build, aim_tpu_torch.ops.common\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib') or m.startswith(('aim_tpu.ops', "

@@ -19,10 +19,11 @@ import aim_tpu.native as nat
 from aim_tpu.cli import build_parser, config_from_args
 from aim_tpu_torch import api as tapi
 from aim_tpu_torch import cli as tcli
-from aim_tpu_torch.ops import common, nw, swg, wfa2
-from torch_cases import (CASES, MAIN, NWSWG_CASES, SAMPLE_N, case,
-                         datagen_batch, garbage_padded, nwswg_case,
-                         nwswg_records)
+from aim_tpu_torch.ops import common, genasm, nw, swg, wfa2, wfa_long
+from torch_cases import (CASES, GENASM_CASES, MAIN, NWSWG_CASES, SAMPLE_N,
+                         WFA_LONG_CASES, case, datagen_batch, garbage_padded,
+                         genasm_case, nwswg_case, nwswg_records,
+                         wfa_long_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "data", "sample-l100-e1-2K")
@@ -173,6 +174,88 @@ def test_cli_nwswg_on_gpu(cuda_device, tmp_path, algo):
     cfg = config_from_args(build_parser().parse_args(argv))
     p, t, pl, tl = nat.parse_pairs(SAMPLE, SAMPLE_N, cfg.read_size)
     sc, ops, b, e = tapi._oracle_align(p, t, pl, tl, cfg)
+    nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
+                    cfg.backtrace)
+    assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+def _k45(dev, mod, cfg, p, t, pl, tl, reference=False):
+    """K4 (genasm) or K5 (wfa_long) on the batch as the api hands it over:
+    2-bit packed when it packs, else raw bytes (K5 only)."""
+    pp, pt, packed = common.pack_seqs(p, t, pl, tl, cfg.read_size)
+    if not packed:
+        pp, pt = p, t
+    fwd, ref = ((genasm.genasm_forward, genasm.genasm_reference)
+                if mod is genasm else
+                (wfa_long.wfa_forward_long, wfa_long.wfa_long_reference))
+    args = common.to_device_batch(pp, pt, pl, tl, dev)
+    before = mod.launch_count
+    out = (ref if reference else fwd)(*args, cfg=cfg, packed=packed)
+    torch.cuda.synchronize()
+    assert mod.launch_count == before + (0 if reference else 1)
+    return out.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GENASM_CASES)
+def test_cuda_genasm_matches_reference(cuda_device, name):
+    """K4 records byte-equal to the plain version, overflow pairs too."""
+    cfg, p, t, pl, tl = genasm_case(name)
+    np.testing.assert_array_equal(
+        _k45(cuda_device, genasm, cfg, p, t, pl, tl),
+        _k45(cuda_device, genasm, cfg, p, t, pl, tl, reference=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WFA_LONG_CASES)
+def test_cuda_wfa_long_matches_reference(cuda_device, name):
+    """K5 records byte-equal to the plain version, both word layouts."""
+    cfg, p, t, pl, tl = wfa_long_case(name)
+    np.testing.assert_array_equal(
+        _k45(cuda_device, wfa_long, cfg, p, t, pl, tl),
+        _k45(cuda_device, wfa_long, cfg, p, t, pl, tl, reference=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["genasm", "wfa_long"])
+def test_cuda_k45_records_are_per_pair(cuda_device, which):
+    """A shuffled batch gives the permuted records, one pair alone its row,
+    and bytes past the lengths change nothing."""
+    mod = genasm if which == "genasm" else wfa_long
+    cfg, p, t, pl, tl = (genasm_case("overflow_bt") if which == "genasm"
+                         else wfa_long_case("mixed_r520_s50"))
+    full = _k45(cuda_device, mod, cfg, p, t, pl, tl)
+    perm = np.random.default_rng(1).permutation(len(pl))
+    np.testing.assert_array_equal(
+        _k45(cuda_device, mod, cfg, p[perm], t[perm], pl[perm], tl[perm]),
+        full[perm])
+    for i in (0, 7):
+        one = _k45(cuda_device, mod, cfg, p[i:i + 1], t[i:i + 1],
+                   pl[i:i + 1], tl[i:i + 1])
+        np.testing.assert_array_equal(one[0], full[i])
+    gp, gt = garbage_padded(p, t, pl, tl)
+    np.testing.assert_array_equal(_k45(cuda_device, mod, cfg, gp, gt, pl, tl),
+                                  full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [["-b"], []])
+def test_cli_genasm_on_gpu(cuda_device, tmp_path, flags):
+    """`genasm -b` / `genasm` on the sample: cmp-equal to the oracle,
+    through K4 alone."""
+    out, ref = str(tmp_path / "gpu"), str(tmp_path / "oracle")
+    argv = ["genasm", "-i", SAMPLE, "-l", "100", "-e", "0.01",
+            "-n", str(SAMPLE_N)] + flags
+    for mod in (genasm, wfa2, nw, swg, wfa_long):
+        mod.reset_launch_count()
+    assert tcli.main(argv + ["-o", out, "-q"]) == 0
+    assert genasm.launch_count > 0
+    assert wfa2.launch_count == nw.launch_count == swg.launch_count == \
+        wfa_long.launch_count == 0
+    cfg = config_from_args(build_parser().parse_args(argv))
+    p, t, pl, tl = nat.parse_pairs(SAMPLE, SAMPLE_N, cfg.read_size)
+    sc, ops, b, e = nat.genasm_align(p, t, pl, tl, max_score=cfg.max_score,
+                                     backtrace=cfg.backtrace)
     nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
                     cfg.backtrace)
     assert open(out, "rb").read() == open(ref, "rb").read()

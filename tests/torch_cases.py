@@ -194,3 +194,130 @@ def nwswg_records(cfg, p, t, pl, tl, packed, reference=True):
     fn = getattr(mod, f"{cfg.algo}_reference" if reference
                  else f"{cfg.algo}_forward")
     return torch_records(fn, cfg, p, t, pl, tl, packed)
+
+
+# ---- K4 (GenASM) and K5 (WFA long reads) ----
+
+GENASM_MAIN = derive_config("genasm", 100, 0.01, backtrace=True)
+
+GENASM_CASES = ["r32_k12_bt", "r32_k12_nobt", "r16_k5_edges_bt",
+                "r16_k5_edges_nobt", "main_bt", "main_nobt", "overflow_bt",
+                "overflow_nobt", "r64_k26_bt"]
+
+GENASM_EDGES = [("", "ACG"), ("ACG", ""), ("", ""), ("A", "A"), ("A", "T"),
+                ("AC", "A"), ("A", "AC"), ("ACGT", "ACGT"), ("AAAA", "TTTT"),
+                ("AAAAAAAA", "TTTTTTTT")] * 2
+
+
+def genasm_case(name):
+    """(cfg, pats, txts, plens, tlens) of one named K4 case, raw bytes
+    (the tier takes them 2-bit packed)."""
+    bt = name.endswith("_bt")
+    if name.startswith("r32"):
+        # tests/test_genasm.py: R 32, k 12, 128 random pairs
+        cfg = AlignConfig(algo="genasm", read_size=32, max_score=12,
+                          backtrace=bt)
+        return (cfg, *pack(random_pairs(seed=73, n=128, max_len=24), 32))
+    if name.startswith("r16"):
+        # tests/test_genasm.py edge pairs, empty sequences included
+        cfg = AlignConfig(algo="genasm", read_size=16, max_score=5,
+                          backtrace=bt)
+        return (cfg, *pack(GENASM_EDGES, 16))
+    if name.startswith("main"):
+        return (GENASM_MAIN.replace(backtrace=bt),
+                *datagen.generate_pairs(64, 100, 0.01, read_size=112,
+                                        seed=3))
+    if name.startswith("overflow"):
+        # 3 edits on 100 bp against k = 2: overflow pairs in the mix
+        return (GENASM_MAIN.replace(backtrace=bt),
+                *datagen.generate_pairs(64, 100, 0.03, read_size=112,
+                                        seed=3))
+    if name == "r64_k26_bt":
+        # the gate's k edge (k < 27): 81 rows, history past 48 KB a block
+        cfg = AlignConfig(algo="genasm", read_size=64, max_score=26,
+                          backtrace=True)
+        return (cfg, *pack(random_pairs(seed=7, n=64, max_len=60,
+                                        balanced=False), 64))
+    raise KeyError(name)
+
+
+def packed_case(p, t, pl, tl, read_size):
+    """The 2-bit packed form of a DNA batch."""
+    pp, pt, ok = common.pack_seqs(p, t, pl, tl, read_size)
+    assert ok
+    return pp, pt
+
+
+WFA_LONG_CASES = ["r264_s40_ad", "r264_s40_nonad", "r264_s40_nobt",
+                  "mixed_r520_s50", "acgtn_r264_s40", "l1000"]
+
+
+def _long_pairs(R, n, seed=41):
+    """tests/test_longread.py::_pairs at any R."""
+    import random
+
+    from util import make_pair
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        plen = rng.randrange(150, R - 30)
+        tlen = max(1, plen + rng.choice([-1, 0, 0, 1]))
+        out.append(make_pair(rng, plen, tlen, rng.randrange(0, 8)))
+    return out
+
+
+def mixed_lengths_batch(R=520, n=16, seed=91):
+    """tests/test_longread.py's mixed-length tile: empty, tiny and
+    full-length pairs."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pats = np.zeros((n, R), np.uint8)
+    txts = np.zeros((n, R), np.uint8)
+    pl = np.zeros(n, np.int32)
+    tl = np.zeros(n, np.int32)
+    lens = [0, 1, 13, 50, 250, 500]
+    for i in range(n):
+        lp = lens[i % len(lens)]
+        lt = max(0, lp + int(rng.integers(-3, 4))) if lp else 0
+        p0 = bases[rng.integers(0, 4, lp)] if lp else np.zeros(0, np.uint8)
+        if lt <= lp:
+            t0 = p0[:lt].copy()
+        else:
+            t0 = np.concatenate([p0, bases[rng.integers(0, 4, lt - lp)]])
+        if lt:
+            mut = rng.random(lt) < 0.02
+            t0 = np.where(mut, bases[rng.integers(0, 4, lt)], t0)
+        pats[i, :lp] = p0
+        txts[i, :lt] = t0
+        pl[i] = lp
+        tl[i] = lt
+    return pats, txts, pl, tl
+
+
+def wfa_long_case(name):
+    """(cfg, pats, txts, plens, tlens) of one named K5 case, raw bytes."""
+    if name.startswith("r264"):
+        cfg = AlignConfig(algo="wfa", read_size=264, max_score=40,
+                          backtrace=not name.endswith("nobt"),
+                          adaptive=not name.endswith("nonad"),
+                          variant="hbm")
+        return (cfg, *pack(_long_pairs(264, 12), 264))
+    if name == "mixed_r520_s50":
+        cfg = AlignConfig(algo="wfa", read_size=520, max_score=50,
+                          backtrace=True, adaptive=True, variant="hbm")
+        return (cfg, *mixed_lengths_batch())
+    if name == "acgtn_r264_s40":
+        cfg = AlignConfig(algo="wfa", read_size=264, max_score=40,
+                          backtrace=True, adaptive=True, variant="hbm")
+        pairs = random_pairs(seed=5, n=16, max_len=250, balanced=False,
+                             alphabet="ACGTN")
+        p, t, pl, tl = pack(pairs, 264)
+        assert not common.pack_seqs(p, t, pl, tl, 264)[2]
+        return (cfg, p, t, pl, tl)
+    if name == "l1000":
+        cfg = derive_config("wfa", 1000, 0.01, backtrace=True,
+                            adaptive=True, variant="hbm")
+        return (cfg, *datagen.generate_pairs(16, 1000, 0.01,
+                                             read_size=cfg.read_size,
+                                             seed=2))
+    raise KeyError(name)
