@@ -3,25 +3,28 @@
 The counterpart of ``aim_tpu/api.py`` for the kernel tiers the port has:
 sort long reads by estimated difficulty, pack the pairs, pick the tier for
 the batch's alphabet, upload each chunk, run the kernel, pull the records,
-decode them by their grammar (WFA and GenASM step records or NW/SWG packed
-runs) into scores and CIGARs with the native decoders, re-run the pairs a
-kernel flags on the exact host oracle, emit the reference-format file.
-The host runtime (parser, record decoders, emitter, oracle) is
-``aim_tpu.native``, shared with the reference package.
+decode them by their grammar (WFA and GenASM step records or packed runs)
+into scores and CIGARs with the native decoders, re-run the pairs a kernel
+flags on the wider bands of the retry ladder and then on the exact host
+oracle, emit the reference-format file.  The host runtime (parser, record
+decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from aim_tpu import native
-from aim_tpu.config import ALGO_NW, ALGO_SWG, ALGO_WFA, AlignConfig
+from aim_tpu_torch import native
+from aim_tpu_torch.config import ALGO_GENASM, ALGO_NW, ALGO_SWG, ALGO_WFA, \
+    AlignConfig
 from aim_tpu_torch.ops import kernels
+from aim_tpu_torch.ops.nwswg_long import band_c
 from aim_tpu_torch.ops.common import pack_seqs, round_up, to_device_batch
 
 WAVE = 8            # chunks uploaded together before their kernels run
@@ -39,8 +42,13 @@ class AlignResult:
     t_kernel: float = 0.0
     t_retrieve: float = 0.0
     # pairs a kernel flagged (packed-run bit 8) and the exact host oracle
-    # re-ran; WFA and GenASM never flag
+    # re-ran; WFA and the GenASM short tier never flag
     n_fallback: int = 0
+    # flagged pairs a wider band of the retry ladder certified, in all and
+    # by plane count, and the pairs each stage was sent
+    n_retry: int = 0
+    retry_by_planes: dict = field(default_factory=dict)
+    retry_sent_by_planes: dict = field(default_factory=dict)
 
 
 def _sync(device: torch.device):
@@ -59,13 +67,15 @@ def _device_memory_budget(device: torch.device) -> int:
 
 def _memory_batch_cap(cfg: AlignConfig, device: torch.device,
                       budget_bytes: int | None = None,
-                      packed_ok: bool = True) -> int:
+                      packed_ok: bool = True,
+                      per_pair: int | None = None) -> int:
     """Pairs per chunk that fit the device budget, at the per-pair
     footprint of the kernel that serves the config (uploads, records,
-    global scratch)."""
+    global scratch) unless ``per_pair`` gives another."""
     if budget_bytes is None:
         budget_bytes = _device_memory_budget(device)
-    per_pair = kernels.forward_fn(cfg, packed_ok).device_bytes_per_pair
+    if per_pair is None:
+        per_pair = kernels.forward_fn(cfg, packed_ok).device_bytes_per_pair
     return max(256, budget_bytes // per_pair)
 
 
@@ -128,7 +138,9 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
         res.begin[inv] if res.begin is not None else None,
         res.end[inv] if res.end is not None else None,
         t_load=res.t_load + t_sort, t_kernel=res.t_kernel,
-        t_retrieve=res.t_retrieve, n_fallback=res.n_fallback)
+        t_retrieve=res.t_retrieve, n_fallback=res.n_fallback,
+        n_retry=res.n_retry, retry_by_planes=res.retry_by_planes,
+        retry_sent_by_planes=res.retry_sent_by_planes)
 
 
 def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
@@ -178,6 +190,7 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         del outs
 
     smax = cfg.max_score
+    retry_stages = _retry_stages(fwd)
     for lo, rec in zip(starts, records):
         chunk = slice(lo, lo + rec.shape[0])
         flagged = None
@@ -193,7 +206,7 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
                     max_ops=max_ops)
                 ops[chunk], begin[chunk], end[chunk] = o, b, e
         else:
-            # NW/SWG packed runs: lane 0 = cursor | flags << 8 (bit 8 =
+            # packed runs: lane 0 = cursor | flags << 8 (bit 8 =
             # needs_fallback), lane 1 = score, then the runs
             lane0 = rec[:, 0].astype(np.int32)
             scores[chunk] = rec[:, 1]
@@ -203,21 +216,138 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
                     rec, scores[chunk], plens[chunk], tlens[chunk],
                     max_score=1 << 30, max_ops=max_ops)
                 ops[chunk], begin[chunk], end[chunk] = o, b, e
-        if flagged is not None and len(flagged):
-            # pairs the band cannot prove exact: the exact host oracle
-            # (the reference's wide-band device retry is not ported yet)
-            sel = lo + flagged
-            res.n_fallback += len(sel)
-            osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel],
-                                              plens[sel], tlens[sel], cfg)
-            scores[sel] = osc
-            if cfg.backtrace:
-                ops[sel], begin[sel], end[sel] = oops, ob, oe
+        if flagged is None or not len(flagged):
+            continue
+        # flagged pairs: the wider bands of the ladder on the device, then
+        # the exact host oracle for what they still flag
+        sel = flagged
+        for p in retry_stages:
+            if not len(sel):
+                break
+            sel = _retry_wide(fwd.retry, cfg, pats[chunk], txts[chunk],
+                              plens[chunk], tlens[chunk], sel, scores, ops,
+                              begin, end, lo, max_ops, device, res, planes=p)
+        if not len(sel):
+            continue
+        sel = lo + sel
+        res.n_fallback += len(sel)
+        osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel], plens[sel],
+                                          tlens[sel], cfg)
+        scores[sel] = osc
+        if cfg.backtrace:
+            ops[sel], begin[sel], end[sel] = oops, ob, oe
     return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
 
 
+def _retry_stages(tier) -> tuple:
+    """The plane counts of the band-retry ladder, ascending (copied from
+    ``aim_tpu/api.py::_retry_stages``): AIM_TPU_RETRY_PLANES (default
+    "2,4,8"; malformed or out-of-range tokens are warned about and
+    dropped, an explicit empty string turns the ladder off), keeping only
+    stages wider than the tier's primary band.  A tier without a retry
+    has none."""
+    if getattr(tier, "retry", None) is None:
+        return ()
+    raw = os.environ.get("AIM_TPU_RETRY_PLANES", "2,4,8")
+    stages = set()
+    for tok in raw.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        try:
+            p = int(tok)
+        except ValueError:
+            print(f"AIM_TPU_RETRY_PLANES: ignoring malformed token "
+                  f"{tok!r}", file=sys.stderr)
+            continue
+        if 1 < p <= 8:
+            stages.add(p)
+        else:
+            print(f"AIM_TPU_RETRY_PLANES: ignoring out-of-range plane "
+                  f"count {p} (need 2..8)", file=sys.stderr)
+    if not stages and raw.strip() != "":
+        stages = {2}
+    primary = getattr(tier, "primary_planes", 1)
+    return tuple(sorted(p for p in stages if p > primary))
+
+
+def _retry_budget_bytes(cfg: AlignConfig, planes: int) -> int:
+    """Device bytes a pair holds on the retry tier at ``planes``."""
+    if cfg.algo == ALGO_GENASM:
+        from aim_tpu_torch.ops.genasm_long import bytes_per_pair
+        return bytes_per_pair(cfg, planes)
+    from aim_tpu_torch.ops.nwswg_long import device_bytes_per_pair
+    return device_bytes_per_pair(cfg, planes)
+
+
+def _retry_wide(retry, cfg: AlignConfig, cpats, ctxts, cplens, ctlens, sel,
+                scores, ops, begin, end, lo, max_ops, device,
+                res: AlignResult, planes: int = 2):
+    """Re-run a chunk's flagged pairs ``sel`` (indices into the chunk) on
+    the retry tier at ``planes`` planes (band half-width 64*planes - 1),
+    as ``aim_tpu/api.py::_retry_wide`` does: pairs this band flags for
+    host-computable reasons are skipped, batches are capped by device
+    memory (at most 8192, a power of two), certified pairs land their
+    scores and CIGARs and count in ``res.n_retry``; returns the pairs
+    still flagged.  The raw rows are uploaded (no 2-bit packing).  A
+    launch that fails raises: nothing falls back quietly."""
+    unfix = (cplens[sel] > ctlens[sel] + 1) \
+        | (ctlens[sel].astype(np.int64) > cplens[sel] + band_c(planes))
+    if cfg.algo == ALGO_SWG:
+        margin = cfg.gap_o + cfg.gap_e + max(cfg.mismatch, abs(cfg.match),
+                                             cfg.gap_e)
+        if cfg.max_score + margin > 32767:
+            return sel
+        unfix = unfix | ((cfg.gap_o + np.maximum(cplens[sel], ctlens[sel])
+                          .astype(np.int64) * cfg.gap_e + margin) > 32767)
+    if unfix.any():
+        keep = sel[~unfix]
+        if not len(keep):
+            return sel
+        left = _retry_wide(retry, cfg, cpats, ctxts, cplens, ctlens, keep,
+                           scores, ops, begin, end, lo, max_ops, device, res,
+                           planes)
+        return np.sort(np.concatenate([sel[unfix], left]))
+    cap = 128
+    budget_cap = _memory_batch_cap(
+        cfg, torch.device(device),
+        per_pair=_retry_budget_bytes(cfg, planes))
+    while cap * 2 <= min(8192, budget_cap):
+        cap *= 2
+    if len(sel) > cap:
+        return np.concatenate([
+            _retry_wide(retry, cfg, cpats, ctxts, cplens, ctlens,
+                        sel[s0:s0 + cap], scores, ops, begin, end, lo,
+                        max_ops, device, res, planes)
+            for s0 in range(0, len(sel), cap)])
+    rpl = cplens[sel].astype(np.int32)
+    rtl = ctlens[sel].astype(np.int32)
+    args = to_device_batch(cpats[sel], ctxts[sel], rpl, rtl, device)
+    res.retry_sent_by_planes[planes] = \
+        res.retry_sent_by_planes.get(planes, 0) + len(sel)
+    pr = np.ascontiguousarray(
+        retry(*args, cfg=cfg, planes=planes).cpu().numpy())
+    sc2 = pr[:, 1].astype(np.int32)
+    fb2 = ((pr[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
+    good = ~fb2
+    if good.any():
+        g = sel[good]
+        res.n_retry += len(g)
+        res.retry_by_planes[planes] = \
+            res.retry_by_planes.get(planes, 0) + len(g)
+        scores[lo + g] = sc2[good]
+        if ops is not None:
+            o, b, e = native.wfa_runs_to_ops(pr, sc2, rpl, rtl,
+                                             max_score=1 << 30,
+                                             max_ops=max_ops)
+            ops[lo + g] = o[good]
+            begin[lo + g] = b[good]
+            end[lo + g] = e[good]
+    return sel[fb2]
+
+
 def _oracle_align(pats, txts, plens, tlens, cfg: AlignConfig):
-    """The exact host path for flagged NW/SWG pairs (aim_tpu/api.py
+    """The exact host path for flagged pairs (aim_tpu/api.py
     ``_oracle_align``), on a pool sized from the host."""
     if cfg.algo == ALGO_NW:
         return native.nw_align(pats, txts, plens, tlens,
@@ -230,6 +360,10 @@ def _oracle_align(pats, txts, plens, tlens, cfg: AlignConfig):
                                 gap_e=cfg.gap_e, max_score=cfg.max_score,
                                 cell_width=cfg.cell_width,
                                 backtrace=cfg.backtrace, threads=0)
+    if cfg.algo == ALGO_GENASM:
+        return native.genasm_align(pats, txts, plens, tlens,
+                                   max_score=cfg.max_score,
+                                   backtrace=cfg.backtrace, threads=0)
     raise ValueError(f"{cfg.algo}: no flagged pairs expected")
 
 
@@ -267,6 +401,8 @@ def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
     """The dpu-out analogue: one line for the device with its run."""
     device = torch.device(device)
     label = f"GPU {device.index or 0}" if device.type == "cuda" else "CPU"
+    stages = ",".join(f"{p}:{res.retry_by_planes.get(p, 0)}/{k}" for p, k in
+                      sorted(res.retry_sent_by_planes.items())) or "-"
     with open(path, "w") as f:
         f.write(f"{label}: {device_name(device)} | "
                 f"algo={cfg.algo} max_score={cfg.max_score} "
@@ -274,7 +410,8 @@ def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
                 f"adaptive={cfg.adaptive} pairs={n} "
                 f"load_s={res.t_load:.6f} kernel_s={res.t_kernel:.6f} "
                 f"retrieve_s={res.t_retrieve:.6f} "
-                f"fallback={res.n_fallback}\n")
+                f"fallback={res.n_fallback} retry={res.n_retry} "
+                f"retry_by_planes={stages}\n")
 
 
 def align_file(input_path: str, output_path: str, n_reads: int,

@@ -135,6 +135,15 @@ def declare(lib):
     # adaptive backtrace, and the stream
     lib.aim_wfa_long_forward.restype = ci
     lib.aim_wfa_long_forward.argtypes = [vp] * 6 + [cl] + [ci] * 9 + [vp]
+    # pointers (pats txts plens tlens meta codes ism rec), n, then width
+    # packed weff lpad R planes NRL swg backtrace, the costs gi gd x mat go
+    # ge ms, and the stream
+    lib.aim_nwswg_long_forward.restype = ci
+    lib.aim_nwswg_long_forward.argtypes = [vp] * 8 + [cl] + [ci] * 16 + [vp]
+    # pointers (codes ism meta plens tlens rec), n, then R planes NRL RB
+    # swg, and the stream
+    lib.aim_nwswg_long_walk.restype = ci
+    lib.aim_nwswg_long_walk.argtypes = [vp] * 6 + [cl] + [ci] * 5 + [vp]
     lib.aim_cuda_error_string.restype = ctypes.c_char_p
     lib.aim_cuda_error_string.argtypes = [ci]
     return lib

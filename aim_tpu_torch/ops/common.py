@@ -26,14 +26,11 @@ def pack_seqs(pats, txts, plens, tlens, read_size: int):
     for equality.
     """
     Rp = -(-(read_size + 2) // 8) * 8
-    try:
-        from aim_tpu import native
-        if native.available():
-            return native.pack_seqs(np.ascontiguousarray(pats, np.uint8),
-                                    np.ascontiguousarray(txts, np.uint8),
-                                    plens, tlens, Rp)
-    except Exception:
-        pass  # fall through to the numpy path
+    from aim_tpu_torch import native
+    if native.available():
+        return native.pack_seqs(np.ascontiguousarray(pats, np.uint8),
+                                np.ascontiguousarray(txts, np.uint8),
+                                plens, tlens, Rp)
     seen = np.zeros(256, bool)
     seen[pats.reshape(-1)] = True
     seen[txts.reshape(-1)] = True

@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from aim_tpu.config import AlignConfig
+from aim_tpu_torch.config import AlignConfig
 from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 
 I64 = torch.int64

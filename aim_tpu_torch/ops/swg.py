@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from aim_tpu.config import AlignConfig, wram_feasible
+from aim_tpu_torch.config import AlignConfig, wram_feasible
 from aim_tpu_torch.ops import nw
 from aim_tpu_torch.ops.common import check_pair_tensors
 from aim_tpu_torch.ops.nw import (I32, INF, OP_D, OP_I, OP_M, OP_X,

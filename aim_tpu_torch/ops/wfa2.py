@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from aim_tpu.config import AlignConfig
+from aim_tpu_torch.config import AlignConfig
 from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 
 NULL = -16384       # int16 offset sentinel (reference OFFSET_NULL_16)

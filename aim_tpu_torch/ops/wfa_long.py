@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from aim_tpu.config import AlignConfig
+from aim_tpu_torch.config import AlignConfig
 from aim_tpu_torch.ops import wfa2
 from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 

@@ -9,28 +9,39 @@ before the last line:
               nvidia-smi; build the CUDA kernels from csrc/ (timed).
   2. kernel   each kernel against its plain PyTorch version on the card:
               records byte-equal, and the scores/CIGARs of every pair (K1,
-              K4, K5) or every unflagged pair (K2 NW, K3 SWG) equal to the
-              native oracle.  K1 (csrc/wfa2.cu) on 12 configs, K2
+              K4, K5) or every unflagged pair (K2 NW, K3 SWG, K6/K7) equal
+              to the native oracle.  K1 (csrc/wfa2.cu) on 12 configs, K2
               (csrc/nw.cu) and K3 (csrc/swg.cu) on 14, K4 (csrc/genasm.cu)
               on 12, 4096 seeded pairs each; K5 (csrc/wfa_long.cu) on 8
-              long-read configs of 16 to 4096 pairs.
+              long-read configs of 16 to 4096 pairs; K6/K7
+              (csrc/nwswg_long.cu) on NW and SWG at planes 1, 2, 4 and 8,
+              with and without backtrace, raw and packed, records of 256 to
+              1024 lanes, flagged pairs, and the GenASM adapter at k in each
+              of its plane bands (K6 on meta and code rows, K7 on records).
   3. main     the CLI paths: `wfa -l 100 -e 0.01 -b -r` (the main path),
               `nw -b`, `nw`, `swg -b`, `swg`, `genasm -b` and `genasm` at
               the same -l/-e, each on the same 1,000,000 generated pairs;
               `wfa -b`, `-b -r`, `-r` and the six NW/SWG/GenASM runs on
               data/sample-l100-e1-2K; `wfa -l 10000 -e 0.01 -b -r --variant
-              hbm` on 8,192 generated pairs and `-b` on the first 1,024.
-              Every output file must equal the oracle's byte for byte, with
-              0 fallback pairs; every launch counter is set to 0 just
-              before each run and read just after, and the run's own kernel
-              must have launched and no other.
+              hbm` on 8,192 generated pairs and `-b` on the first 1,024;
+              the streamed tier `nw -l 4096 -e 0.01 -b --variant hbm` and
+              `nw` (score only) on 4,096 generated pairs, `swg ... -b` on
+              2,048 of them (also under AIM_TPU_ROUTE=0, where the primary
+              band is C = 63 and the retry ladder climbs), and `genasm -l
+              4096 -e 0.01 -b` on the 4,096.  Every output file must equal
+              the oracle's byte for byte; every launch counter is set to 0
+              just before each run and read just after, and the run's own
+              kernels must have launched and no other.  The 100 bp and WFA
+              runs must flag no pair; the streamed runs report the pairs
+              the ladder certified at each stage and the oracle re-ran.
   4. timing   each kernel vs its plain version on one chunk of its
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
-              pairs at 10 kbp; their records compared once more at this,
-              the CLI's launch shape.
+              pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
+              records compared once more at this, the CLI's launch shape.
 
-The last two lines are the kernel table and
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+The last two lines are the kernel table (time, plain time, the bound the
+card sets for the same work and what sets it, launches on the main path)
+and {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
 from __future__ import annotations
@@ -55,6 +66,16 @@ LONG_PAIRS = 8_192       # the generated 10 kbp run
 ORACLE_1T_PAIRS = 200_000
 LONG_TIMING_PAIRS = 1_024   # the 10 kbp timing chunk (the plain version
                             # takes about half a minute on it)
+STREAM_PAIRS = 4_096        # the generated 4 kbp streamed-tier runs
+STREAM_SWG_PAIRS = 2_048
+# the ladder's run: this many pairs at each error rate, one file
+LADDER_ERRORS = (0.01, 0.025, 0.035)
+LADDER_PAIRS_EACH = 640
+# The card's peaks for the bounds (H100 SXM data sheet and white paper, at
+# the 700 W limit): HBM3 bytes a second; int32 operations a second (132 SMs
+# x 64 INT32 lanes x 1.98 GHz boost clock).
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
 
 
 def fail(msg):
@@ -101,9 +122,9 @@ def fuzz_batch(R, alphabet="ACGT"):
 def kernel_configs():
     """(name, cfg, (pats, txts, plens, tlens)) of every K1 check: 4096
     seeded pairs each, made as tools/fuzz_kernels.py makes them
-    (tests/util.py) or by aim_tpu.datagen."""
-    from aim_tpu import datagen
-    from aim_tpu.config import AlignConfig, derive_config
+    (tests/util.py) or by aim_tpu_torch.datagen."""
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import AlignConfig, derive_config
 
     main = derive_config("wfa", 100, 0.01, backtrace=True, adaptive=True)
     dg = datagen.generate_pairs(4096, 100, 0.01, read_size=112, seed=SEED)
@@ -142,7 +163,7 @@ def kernel_configs():
 
 
 def phase_kernel():
-    from aim_tpu import native
+    from aim_tpu_torch import native
     from aim_tpu_torch.ops import wfa2
     from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
     max_err = 0
@@ -193,8 +214,8 @@ def phase_kernel():
 def band_configs():
     """(name, cfg, (pats, txts, plens, tlens)) of every K2/K3 check, 4096
     seeded pairs each."""
-    from aim_tpu import datagen
-    from aim_tpu.config import AlignConfig, derive_config
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import AlignConfig, derive_config
 
     def dg(e, seed=SEED, length=100, R=112):
         return datagen.generate_pairs(4096, length, e, read_size=R,
@@ -243,7 +264,7 @@ def band_configs():
 
 def phase_band_kernels():
     """K2/K3 against their plain versions; returns {kernel: max_abs_err}."""
-    from aim_tpu import native
+    from aim_tpu_torch import native
     from aim_tpu_torch.api import _oracle_align
     from aim_tpu_torch.ops import nw, swg
     from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
@@ -302,8 +323,8 @@ def phase_band_kernels():
 def genasm_configs():
     """(name, cfg, (pats, txts, plens, tlens)) of every K4 check, 4096
     seeded pairs each."""
-    from aim_tpu import datagen
-    from aim_tpu.config import AlignConfig, derive_config
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import AlignConfig, derive_config
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_cases import GENASM_EDGES
     from util import pack
@@ -342,7 +363,7 @@ def genasm_configs():
 
 def phase_genasm_kernel():
     """K4 against its plain version and the GenASM oracle."""
-    from aim_tpu import native
+    from aim_tpu_torch import native
     from aim_tpu_torch.ops import genasm
     from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
     max_err = 0
@@ -393,8 +414,8 @@ def phase_genasm_kernel():
 
 def long_configs():
     """(name, cfg, (pats, txts, plens, tlens)) of every K5 check."""
-    from aim_tpu import datagen
-    from aim_tpu.config import derive_config
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import derive_config
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_cases import mixed_lengths_batch
 
@@ -430,7 +451,7 @@ def long_configs():
 
 def phase_long_kernel():
     """K5 against its plain version and the WFA oracle."""
-    from aim_tpu import native
+    from aim_tpu_torch import native
     from aim_tpu_torch.ops import wfa_long
     from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
     max_err = 0
@@ -478,35 +499,265 @@ def phase_long_kernel():
     return max_err
 
 
+def stream_configs():
+    """(name, cfg, (pats, txts, plens, tlens), planes, packed) of every
+    K6/K7 check: the 4 kbp CLI configs, planes 1 to 8, several row
+    blocks, mixed lengths, records of 256, 512 and 1024 lanes, and pairs
+    that flag (aliasing, band exit, the SWG int16 wrap bound)."""
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import AlignConfig, derive_config
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_cases import (NW_LONG, SWG_LONG, mixed_lengths_batch,
+                             nwswg_long_case)
+
+    def dg(n, length, e, cfg, seed=SEED):
+        return datagen.generate_pairs(n, length, e, read_size=cfg.read_size,
+                                      seed=seed)
+
+    nw4 = derive_config("nw", 4096, 0.01, backtrace=True, variant="hbm")
+    swg4 = derive_config("swg", 4096, 0.01, backtrace=True, variant="hbm")
+    b_nw4 = dg(512, 4096, 0.01, nw4)
+    b_swg4 = dg(256, 4096, 0.01, swg4)
+    nw15 = derive_config("nw", 1500, 0.02, backtrace=True, variant="hbm")
+    swg2k = AlignConfig(read_size=2048, **SWG_LONG)           # NRL 512
+    unit4 = AlignConfig(algo="nw", read_size=4144, max_score=400,
+                        backtrace=True, gap_i=1, gap_d=1, mismatch=1)
+    nw10 = derive_config("nw", 10000, 0.01, backtrace=False, variant="hbm")
+    # gap extension 40: pairs longer than ~800 flag on the int16 wrap bound
+    wrap = AlignConfig(algo="swg", read_size=1040, max_score=400, match=0,
+                       mismatch=3, gap_o=4, gap_e=40, variant="hbm",
+                       backtrace=True)
+    out = [("nw_4k_p1_bt", nw4, b_nw4, 1, True),
+           ("nw_4k_p1_nobt", nw4.replace(backtrace=False), b_nw4, 1, False),
+           ("nw_4k_p2_bt", nw4, b_nw4, 2, False),
+           ("swg_4k_p2_bt", swg4, b_swg4, 2, True),
+           ("swg_4k_p1_bt", swg4, b_swg4, 1, False),
+           ("swg_4k_p4_nobt", swg4.replace(backtrace=False), b_swg4, 4,
+            True),
+           ("nw_1k5_p4_bt", nw15, dg(512, 1500, 0.02, nw15), 4, False),
+           ("nw_1k5_p8_bt", nw15, dg(256, 1500, 0.02, nw15), 8, True),
+           ("swg_2k_p8_bt_nrl512", swg2k, dg(256, 2000, 0.03, swg2k), 8,
+            False),
+           ("swg_2k_p2_bt_nrl512", swg2k, dg(512, 2000, 0.02, swg2k), 2,
+            True),
+           ("nw_unit_4k_p2_bt_nrl1024", unit4, dg(256, 4096, 0.02, unit4),
+            2, True),
+           ("nw_10k_p2_nobt_nrl1024", nw10, dg(64, 10000, 0.01, nw10), 2,
+            True),
+           ("nw_mixed_R520_p1", AlignConfig(read_size=520, **NW_LONG),
+            mixed_lengths_batch(R=520, n=256), 1, False),
+           ("nw_mixed_R520_p2", AlignConfig(read_size=520, **NW_LONG),
+            mixed_lengths_batch(R=520, n=256), 2, True),
+           ("swg_wrap_R1040_p2", wrap, fuzz_batch(1040), 2, False)]
+    for case in ("swg_wide_retry", "ladder_p4", "ladder_p8", "nrl1024_p2"):
+        cfg, p, t, pl, tl, planes = nwswg_long_case(case)
+        out.append((f"case_{case}", cfg, (p, t, pl, tl), planes, False))
+    return out
+
+
+def plain_long(args, cfg, planes, packed):
+    """The plain versions of K6 and K7 on the card: (meta, codes, ism,
+    records)."""
+    from aim_tpu_torch.ops import nwswg_long as L
+    meta, codes, ism = L.nwswg_long_fwd_reference(*args, cfg=cfg,
+                                                  packed=packed,
+                                                  planes=planes)
+    if cfg.backtrace:
+        rec = L.nwswg_long_walk_reference(codes, ism, meta, args[2], args[3],
+                                          cfg=cfg, planes=planes)
+    else:
+        rec = L.score_only_records(meta, L.runs_lanes_long(cfg))
+    return meta, codes, ism, rec
+
+
+def kernel_long(args, cfg, planes, packed):
+    """K6 then (with backtrace) K7 on the card: (meta, codes, ism,
+    records)."""
+    from aim_tpu_torch.ops import nwswg_long as L
+    meta, codes, ism, rec = L.launch_forward(*args, cfg=cfg, packed=packed,
+                                             planes=planes)
+    if cfg.backtrace:
+        L.launch_walk(codes, ism, meta, args[2], args[3], rec, cfg=cfg,
+                      planes=planes)
+    return meta, codes, ism, rec
+
+
+def rows_differ(a, b):
+    return int((a != b).reshape(a.shape[0], -1).any(1).sum())
+
+
+def code_rows_err(got, want, tlens):
+    """Max |difference| of the code bytes over each pair's rows < tlen
+    (rows past it are never written by K6 nor read by K7)."""
+    live = (torch.arange(got.shape[1], device=got.device)[None, :]
+            < tlens[:, None].long())[:, :, None]
+    d = (got.int() - want.int()).abs() * live
+    return int(d.max()) if d.numel() else 0
+
+
+def phase_stream_kernel():
+    """K6 and K7 against their plain versions and the oracle; returns
+    {"nwswg_long_fwd": max_abs_err, "nwswg_long_walk": max_abs_err}."""
+    from aim_tpu_torch import native
+    from aim_tpu_torch.ops import nwswg_long as L
+    from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
+    err = {"nwswg_long_fwd": 0, "nwswg_long_walk": 0}
+    for name, cfg, (p, t, pl, tl), planes, packed in stream_configs():
+        up_p, up_t = p, t
+        if packed:
+            up_p, up_t, ok = pack_seqs(p, t, pl, tl, cfg.read_size)
+            if not ok:
+                fail(f"{name}: the batch does not pack")
+        args = to_device_batch(up_p, up_t, pl, tl, DEVICE)
+        t0 = time.perf_counter()
+        got = kernel_long(args, cfg, planes, packed)
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = plain_long(args, cfg, planes, packed)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        e6 = int((got[0].long() - want[0].long()).abs().max())
+        rows6 = rows_differ(got[0], want[0])
+        if cfg.backtrace:
+            e6 = max(e6, code_rows_err(got[1], want[1], args[3]),
+                     code_rows_err(got[2], want[2], args[3]))
+        rec, ref = got[3].cpu().numpy(), want[3].cpu().numpy()
+        e7 = int(np.abs(rec.astype(np.int64) - ref).max())
+        rows7 = int((rec != ref).any(1).sum())
+        err["nwswg_long_fwd"] = max(err["nwswg_long_fwd"], e6)
+        err["nwswg_long_walk"] = max(err["nwswg_long_walk"], e7)
+        lane0 = rec[:, 0].astype(np.int32)
+        flagged = ((lane0 >> 8) & 1).astype(bool)
+        ok = ~flagged
+        sc = rec[:, 1].astype(np.int32)
+        # the NW oracle keeps the reference's int16 cells over the whole
+        # table, which wrap once (R+1) x a gap cost passes 32767 (10 kbp
+        # at gap 4); the band's live cells do not, so it is not compared
+        checked = cfg.algo != "nw" or \
+            (cfg.read_size + 1) * max(cfg.gap_i, cfg.gap_d) <= 32767
+        score_bad = cigar_bad = 0
+        if checked:
+            osc, oops, ob, oe = oracle_align(p, t, pl, tl, cfg, threads=0)
+            score_bad = int((sc[ok] != osc[ok]).sum())
+        if checked and cfg.backtrace:
+            ops, b, e = native.wfa_runs_to_ops(rec, sc, pl, tl,
+                                               max_score=1 << 30,
+                                               max_ops=2 * cfg.read_size)
+            cigar_bad = sum(ops[i, b[i]:e[i]].tobytes()
+                            != oops[i, ob[i]:oe[i]].tobytes()
+                            for i in np.nonzero(ok)[0])
+        emit({"phase": "kernel", "kernel": "nwswg_long", "config": name,
+              "algo": cfg.algo, "pairs": len(pl), "read_size": cfg.read_size,
+              "max_score": cfg.max_score, "planes": planes,
+              "C": L.band_c(planes), "NRL": rec.shape[1],
+              "backtrace": cfg.backtrace, "packed": packed,
+              "flagged": int(flagged.sum()),
+              "cursor_hi_pairs": int(((lane0 >> 10) > 0).sum()),
+              "oracle_checked": checked,
+              "meta_rows_differ": rows6, "record_rows_differ": rows7,
+              "k6_max_abs_err": e6, "k7_max_abs_err": e7,
+              "score_bad": score_bad, "cigar_bad": cigar_bad,
+              "kernel_s": t_kernel, "plain_s": t_plain})
+        if rows6 or rows7 or e6 or score_bad or cigar_bad:
+            fail(f"{name}: kernel disagrees")
+        if name.startswith("case_swg_wide") and flagged.sum() < 5:
+            fail(f"{name}: expected the band and alias flags")
+        if name == "swg_wrap_R1040_p2" and not 0 < flagged.sum() < len(pl):
+            fail(f"{name}: expected some pairs past the wrap bound")
+        if "nrl1024" in name and rec.shape[1] != 1024:
+            fail(f"{name}: expected 1024-lane records")
+    err["nwswg_long_walk"] = max(err["nwswg_long_walk"],
+                                 phase_genasm_long_kernel())
+    return err
+
+
+def phase_genasm_long_kernel():
+    """The GenASM long tier at k in each of its plane bands: K6/K7 and the
+    device rewrite against the plain versions and the GenASM oracle."""
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import AlignConfig
+    from aim_tpu_torch.ops import genasm_long as G
+    from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_cases import genasm_long_case
+    k300 = AlignConfig(algo="genasm", read_size=2048, max_score=300,
+                       backtrace=True)
+    configs = [(c, genasm_long_case(c)) for c in ("k40_r576", "k160_r640")]
+    configs.append(("k300_r2048", (k300, *datagen.generate_pairs(
+        256, 2000, 0.1, read_size=2048, seed=SEED))))
+    max_err = 0
+    for name, (cfg, p, t, pl, tl) in configs:
+        up_p, up_t, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
+        args = to_device_batch(up_p, up_t, pl, tl, DEVICE)
+        planes = G._npl(cfg)
+        got = G.genasm_forward_long(*args, cfg=cfg, packed=packed)
+        want = G.overflow_rewrite(
+            plain_long(args, G._nw_cfg(cfg), planes, packed)[3], args[2],
+            args[3], cfg=cfg)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        err = int(np.abs(got.astype(np.int64) - want).max())
+        max_err = max(max_err, err)
+        rows = int((got != want).any(1).sum())
+        flagged = ((got[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
+        sc = got[:, 1].astype(np.int32)
+        osc = oracle_align(p, t, pl, tl, cfg, threads=0)[0]
+        score_bad = int((sc[~flagged] != osc[~flagged]).sum())
+        over = int(((sc > cfg.max_score) & ~flagged).sum())
+        emit({"phase": "kernel", "kernel": "genasm_long", "config": name,
+              "pairs": len(pl), "read_size": cfg.read_size,
+              "max_score": cfg.max_score, "planes": planes,
+              "packed": packed, "flagged": int(flagged.sum()),
+              "overflow_pairs": over, "record_rows_differ": rows,
+              "max_abs_err": err, "score_bad": score_bad})
+        if rows or score_bad:
+            fail(f"{name}: the GenASM long tier disagrees")
+    return max_err
+
+
 def read_device_log(path):
     fields = open(path).read().split("|", 1)[1].split()
     return dict(f.split("=", 1) for f in fields)
 
 
 def launch_counters():
-    from aim_tpu_torch.ops import genasm, nw, swg, wfa2, wfa_long
-    return {"wfa": wfa2, "nw": nw, "swg": swg, "genasm": genasm,
-            "wfa_long": wfa_long}
+    """{kernel: (module, counter attribute)} of every kernel."""
+    from aim_tpu_torch.ops import genasm, nw, nwswg_long, swg, wfa2, wfa_long
+    return {"wfa": (wfa2, "launch_count"), "nw": (nw, "launch_count"),
+            "swg": (swg, "launch_count"),
+            "genasm": (genasm, "launch_count"),
+            "wfa_long": (wfa_long, "launch_count"),
+            "nwswg_long_fwd": (nwswg_long, "launch_count"),
+            "nwswg_long_walk": (nwswg_long, "walk_launch_count")}
 
 
-def run_cli(argv, out, log):
+def run_cli(argv, out, log, env=None):
     """One CLI run with every launch counter set to 0 just before it;
     returns (wall s, {kernel: launches}, device log)."""
     from aim_tpu_torch import cli
     mods = launch_counters()
-    for mod in mods.values():
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    for mod, _ in mods.values():
         mod.reset_launch_count()
-    t0 = time.perf_counter()
-    rc = cli.main(argv + ["-o", out, "--device-log", log, "-q"])
-    wall = time.perf_counter() - t0
-    launches = {k: mod.launch_count for k, mod in mods.items()}
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-o", out, "--device-log", log, "-q"])
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     if rc != 0:
         fail(f"cli {argv} returned {rc}")
     return wall, launches, read_device_log(log)
 
 
 def oracle_align(p, t, pl, tl, cfg, threads):
-    from aim_tpu import native
+    from aim_tpu_torch import native
     if cfg.algo == "genasm":
         return native.genasm_align(p, t, pl, tl, max_score=cfg.max_score,
                                    backtrace=cfg.backtrace, threads=threads)
@@ -527,7 +778,7 @@ def oracle_align(p, t, pl, tl, cfg, threads):
 
 
 def oracle_file(path, inp, n, cfg, threads=0):
-    from aim_tpu import native
+    from aim_tpu_torch import native
     t0 = time.perf_counter()
     p, t, pl, tl = native.parse_pairs(inp, n, cfg.read_size, threads=0)
     t1 = time.perf_counter()
@@ -544,13 +795,40 @@ MAIN_RUNS = [("wfa", ["-b", "-r"]), ("nw", ["-b"]), ("nw", []),
 SAMPLE_RUNS = [("wfa", f) for f in (["-b"], ["-b", "-r"], ["-r"])] + \
     MAIN_RUNS[1:]
 LONG_RUNS = [(LONG_PAIRS, ["-b", "-r"]), (1_024, ["-b"])]
+# (algo, flags, input, pairs, env) of the 4 kbp streamed-tier runs: the
+# 4,096-pair file at e = 1 %, and for the ladder a file of pairs at 1, 2.5
+# and 3.5 %, run at -e 0.03 with the primary band at C = 63, so that
+# stages 2, 4 and 8 each have pairs to certify (SWG scores near 170, 430
+# and 600: inside the envelopes of C = 127, 255 and 511)
+STREAM_RUNS = [
+    ("nw", ["-e", "0.01", "-b", "--variant", "hbm"], "4k", STREAM_PAIRS, {}),
+    ("nw", ["-e", "0.01", "--variant", "hbm"], "4k", STREAM_PAIRS, {}),
+    ("swg", ["-e", "0.01", "-b", "--variant", "hbm"], "4k", STREAM_SWG_PAIRS,
+     {}),
+    ("swg", ["-e", "0.03", "-b", "--variant", "hbm"], "4k_mixed",
+     len(LADDER_ERRORS) * LADDER_PAIRS_EACH, {"AIM_TPU_ROUTE": "0"}),
+    ("genasm", ["-e", "0.01", "-b"], "4k", STREAM_PAIRS, {})]
+STREAM_KERNELS = ("nwswg_long_fwd", "nwswg_long_walk")
+
+
+def ladder_stages(log):
+    """{planes: (pairs sent, pairs certified)} from a device log."""
+    if log.get("retry_by_planes", "-") == "-":
+        return {}
+    out = {}
+    for item in log["retry_by_planes"].split(","):
+        planes, counts = item.split(":")
+        done, sent = counts.split("/")
+        out[int(planes)] = (int(sent), int(done))
+    return out
 
 
 def phase_main(smi):
     """Every CLI run; returns {kernel: launches in its canonical run} (the
-    1M-pair `-b` run at 100 bp, the 8,192-pair `-b -r` run at 10 kbp)."""
-    from aim_tpu import datagen
-    from aim_tpu.cli import build_parser, config_from_args
+    1M-pair `-b` run at 100 bp, the 8,192-pair `-b -r` run at 10 kbp, the
+    4,096-pair `nw -b` run at 4 kbp)."""
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.cli import build_parser, config_from_args
     gpu = torch.cuda.get_device_name(0)
     main_launches = {}
     with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
@@ -562,29 +840,53 @@ def phase_main(smi):
         t0 = time.perf_counter()
         datagen.write_pair_file(inp_long, LONG_PAIRS, 10000, 0.01, seed=SEED)
         t_gen_long = time.perf_counter() - t0
+        inp_4k = {"4k": os.path.join(tmp, "pairs_4k.txt"),
+                  "4k_mixed": os.path.join(tmp, "pairs_4k_mixed.txt")}
+        t0 = time.perf_counter()
+        datagen.write_pair_file(inp_4k["4k"], STREAM_PAIRS, 4096, 0.01,
+                                seed=SEED)
+        t_gen_4k = time.perf_counter() - t0
+        half = os.path.join(tmp, "half.txt")
+        with open(inp_4k["4k_mixed"], "wb") as out:
+            for err in LADDER_ERRORS:
+                datagen.write_pair_file(half, LADDER_PAIRS_EACH, 4096, err,
+                                        seed=SEED + 5)
+                with open(half, "rb") as f:
+                    out.write(f.read())
         hundred = ["-l", "100", "-e", "0.01"]
         long_ = ["-l", "10000", "-e", "0.01", "--variant", "hbm"]
-        runs = [(inp, MAIN_PAIRS, a, hundred + f, a, "datagen", t_gen)
+        runs = [(inp, MAIN_PAIRS, a, hundred + f, (a,), "datagen", t_gen, {})
                 for a, f in MAIN_RUNS] + \
-            [(SAMPLE, 1000, a, hundred + f, a, "sample-l100-e1-2K", None)
-             for a, f in SAMPLE_RUNS] + \
-            [(inp_long, n, "wfa", long_ + f, "wfa_long", "datagen-10kbp",
-              t_gen_long if n == LONG_PAIRS else None)
-             for n, f in LONG_RUNS]
+            [(SAMPLE, 1000, a, hundred + f, (a,), "sample-l100-e1-2K", None,
+              {}) for a, f in SAMPLE_RUNS] + \
+            [(inp_long, n, "wfa", long_ + f, ("wfa_long",), "datagen-10kbp",
+              t_gen_long if n == LONG_PAIRS else None, {})
+             for n, f in LONG_RUNS] + \
+            [(inp_4k[src], n, a, ["-l", "4096"] + f,
+              STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1],
+              "datagen-4kbp", t_gen_4k if src == "4k" else None, env)
+             for a, f, src, n, env in STREAM_RUNS]
         # t_src: the generation time, on the runs over a whole generated
         # file; their `-b` runs get the one-thread oracle rate
-        for i, (src, n, algo, flags, kern, label, t_src) in enumerate(runs):
+        for i, (src, n, algo, flags, kerns, label, t_src, env) in \
+                enumerate(runs):
             argv = [algo, "-i", src, "-n", str(n)] + flags
             cfg = config_from_args(build_parser().parse_args(argv))
             out = os.path.join(tmp, f"port{i}")
             ref = os.path.join(tmp, f"oracle{i}")
-            wall, launches, log = run_cli(argv, out, os.path.join(tmp, "log"))
+            wall, launches, log = run_cli(argv, out, os.path.join(tmp, "log"),
+                                          env)
             n_done, t_mt, t_file, batch = oracle_file(ref, src, n, cfg)
             same = filecmp.cmp(out, ref, shallow=False)
+            kern = kerns[0]
+            stages = ladder_stages(log)
             row = {"phase": "main", "input": label, "argv": " ".join(argv),
-                   "kernel": kern, "pairs": n_done,
+                   "env": env, "kernel": kern, "pairs": n_done,
                    "launches": launches[kern], "launches_all": launches,
                    "fallback": int(log["fallback"]),
+                   "retry": int(log["retry"]),
+                   "retry_stages": {p: {"sent": a, "certified": b}
+                                    for p, (a, b) in stages.items()},
                    "t_load_s": float(log["load_s"]),
                    "t_kernel_s": float(log["kernel_s"]),
                    "t_retrieve_s": float(log["retrieve_s"]),
@@ -592,13 +894,16 @@ def phase_main(smi):
                    "device_phase_pairs_s": n_done / (
                        float(log["load_s"]) + float(log["kernel_s"])
                        + float(log["retrieve_s"])),
+                   "oracle_mt_s": t_mt,
                    "oracle_mt_pairs_s": n_done / t_mt,
                    "oracle_mt_file_pairs_s": n_done / t_file,
                    "cmp_equal": same, "gpu": gpu, "nvidia_smi": smi}
             if t_src is not None and "-b" in flags:
                 # one thread on the first ORACLE_1T_PAIRS pairs (a rate per
-                # pair; NW and SWG take ~26 s a million on one core)
-                p, t, pl, tl = (a[:ORACLE_1T_PAIRS] for a in batch)
+                # pair; NW and SWG take ~26 s a million on one core), on
+                # 64 pairs at 4 kbp
+                k1 = ORACLE_1T_PAIRS if label != "datagen-4kbp" else 64
+                p, t, pl, tl = (a[:k1] for a in batch)
                 t1 = time.perf_counter()
                 oracle_align(p, t, pl, tl, cfg, threads=1)
                 row["oracle_1t_pairs_s"] = len(pl) / (time.perf_counter()
@@ -606,27 +911,84 @@ def phase_main(smi):
                 row["oracle_1t_pairs"] = len(pl)
                 row["host_cpu_cores"] = os.cpu_count()
                 row["gen_s"] = t_src
-                main_launches.setdefault(kern, launches[kern])
+                for k in kerns:
+                    main_launches.setdefault(k, launches[k])
             emit(row)
             if not same:
                 fail(f"{argv}: output differs from the oracle")
-            others = sum(v for k, v in launches.items() if k != kern)
-            if int(log["fallback"]) != 0 or launches[kern] <= 0 \
+            others = sum(v for k, v in launches.items() if k not in kerns)
+            flag_ok = int(log["fallback"]) == 0 or label == "datagen-4kbp"
+            if not flag_ok or min(launches[k] for k in kerns) <= 0 \
                     or others or n_done != n:
                 fail(f"{argv}: fallback={log['fallback']} "
                      f"launches={launches} pairs={n_done}")
+            if any(sent and not done for sent, done in stages.values()):
+                fail(f"{argv}: a ladder stage certified no pair: {stages}")
+            if env.get("AIM_TPU_ROUTE") == "0" and set(stages) != {2, 4, 8}:
+                fail(f"{argv}: expected ladder stages 2, 4 and 8: {stages}")
     return main_launches
+
+
+# int32 operations a cell or wavefront diagonal, the least each kernel's
+# recurrence needs (adds, mins and compares; no address arithmetic)
+CELL_OPS = {"nw": 8, "swg": 14, "genasm_word": 6, "wfa_diag": 10}
+
+
+def bound_ms(nbytes, ops):
+    """The least time the card could take: bytes over HBM_BYTES_S or int32
+    operations over INT32_OPS_S, whichever is larger, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / INT32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def chunk_bound(name, cfg, args, rec):
+    """(bound ms, bound_by, bytes, ops) of one kernel call on this chunk:
+    each input read once, each output written once, and the recurrence's
+    int32 operations over the cells this data needs."""
+    from aim_tpu_torch.ops import nw, nwswg_long as L
+    pl = args[2].cpu().numpy().astype(np.int64)
+    tl = args[3].cpu().numpy().astype(np.int64)
+    n = len(pl)
+    inputs = 2 * n * args[0].shape[1] + 8 * n
+    out = rec.numel() * rec.element_size()
+    if name in ("wfa", "wfa_long"):
+        smax = cfg.max_score
+        s = np.minimum(rec[:, smax + 3].cpu().numpy().astype(np.int64), smax)
+        ops = CELL_OPS["wfa_diag"] * int(((s + 1) ** 2).sum())
+    elif name in ("nw", "swg"):
+        B = 2 * nw.band_geometry(cfg)[0] + 1
+        ops = CELL_OPS[name] * B * int(tl.sum())
+    elif name == "genasm":
+        words = -(-(pl + 1) // 32)
+        ops = CELL_OPS["genasm_word"] * (cfg.max_score + 1) * int(
+            (tl * words).sum())
+    elif name == "nwswg_long_fwd":
+        planes = L.route_planes(cfg)
+        B = 2 * L.band_c(planes) + 1
+        ops = CELL_OPS[cfg.algo] * B * int(tl.sum())
+        out = 8 * n + (int(tl.sum()) * sum(L.row_bytes(cfg, planes))
+                       if cfg.backtrace else out)
+    else:  # nwswg_long_walk: meta, lengths, one code word and one
+        # is-match byte a text row of each walked pair, the records
+        flagged = ((rec[:, 0].cpu().numpy().astype(np.int32) >> 8) & 1)
+        inputs = 16 * n + 5 * int(tl[flagged == 0].sum())
+        ops = 0
+    ms, by = bound_ms(inputs + out, ops)
+    return ms, by, inputs + out, ops
 
 
 def phase_timing(reps=20):
     """Each kernel against its plain version on one chunk of its canonical
-    config: 16384 pairs at 100 bp, LONG_TIMING_PAIRS at 10 kbp; returns
-    {kernel: (kernel ms, plain ms, err)}."""
-    from aim_tpu import datagen
-    from aim_tpu.config import derive_config
-    from aim_tpu_torch.ops import genasm, nw, swg, wfa2, wfa_long
+    config: 16384 pairs at 100 bp, LONG_TIMING_PAIRS at 10 kbp,
+    STREAM_PAIRS at 4 kbp for K6 and K7; returns {kernel: (kernel ms,
+    plain ms, err, bound ms, bound_by)}."""
+    from aim_tpu_torch import datagen
+    from aim_tpu_torch.config import derive_config
+    from aim_tpu_torch.ops import genasm, nw, nwswg_long, swg, wfa2, wfa_long
     from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    gpu = torch.cuda.get_device_name(0)
 
     def timed(fn, n, warm=True):
         if warm:
@@ -641,6 +1003,18 @@ def phase_timing(reps=20):
 
     def cfg_of(algo, length, **kw):
         return derive_config(algo, length, 0.01, backtrace=True, **kw)
+
+    def report(name, cfg, length, flags, n, k_ms, p_ms, k_reps, err, bnd):
+        emit({"phase": "timing", "kernel": name,
+              "config": f"{cfg.algo} -l {length} -e 0.01 {flags}"
+                        f" (R{cfg.read_size} smax{cfg.max_score})",
+              "pairs": n, "kernel_ms": k_ms, "plain_ms": p_ms,
+              "kernel_reps": k_reps, "max_abs_err": err,
+              "bound_ms": bnd[0], "bound_by": bnd[1], "bound_bytes": bnd[2],
+              "bound_int32_ops": bnd[3], "gpu": gpu})
+        if err:
+            fail(f"{name}: {n}-pair chunk: kernel disagrees with the "
+                 "plain version")
 
     out = {}
     for name, cfg, fwd, ref, n, flags in (
@@ -667,19 +1041,52 @@ def phase_timing(reps=20):
         p_ms = timed(lambda: ref(*args, cfg=cfg, packed=packed),
                      2 if length == 100 else 1, warm=length == 100)
         # the same chunk, the CLI's launch shape: kernel against plain
-        got = fwd(*args, cfg=cfg, packed=packed).cpu().numpy()
+        rec = fwd(*args, cfg=cfg, packed=packed)
+        got = rec.cpu().numpy()
         want = ref(*args, cfg=cfg, packed=packed).cpu().numpy()
         err = int(np.abs(got.astype(np.int64) - want).max())
-        emit({"phase": "timing", "kernel": name,
-              "config": f"{cfg.algo} -l {length} -e 0.01 {flags}"
-                        f" (R{cfg.read_size} smax{cfg.max_score})",
-              "pairs": len(pl), "kernel_ms": k_ms, "plain_ms": p_ms,
-              "kernel_reps": k_reps, "max_abs_err": err,
-              "gpu": torch.cuda.get_device_name(0)})
-        if err:
-            fail(f"{name}: {n}-pair chunk: kernel disagrees with the "
-                 "plain version")
-        out[name] = (k_ms, p_ms, err)
+        bnd = chunk_bound(name, cfg, args, rec)
+        report(name, cfg, length, flags, len(pl), k_ms, p_ms, k_reps, err,
+               bnd)
+        out[name] = (k_ms, p_ms, err) + bnd[:2]
+
+    # K6 and K7 apart, on the streamed tier's canonical chunk: 4096 pairs of
+    # `nw -l 4096 -e 0.01 -b --variant hbm`, at its routed plane count
+    cfg = cfg_of("nw", 4096, variant="hbm")
+    planes = nwswg_long.route_planes(cfg)
+    p, t, pl, tl = datagen.generate_pairs(STREAM_PAIRS, 4096, 0.01,
+                                          read_size=cfg.read_size,
+                                          seed=SEED + 1)
+    pp, pt, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
+    args = to_device_batch(pp, pt, pl, tl, DEVICE)
+    fwd_out = kernel_long(args, cfg, planes, packed)
+    meta, codes, ism, rec = fwd_out
+    k6_ms = timed(lambda: nwswg_long.launch_forward(
+        *args, cfg=cfg, packed=packed, planes=planes), 5)
+    k7_ms = timed(lambda: nwswg_long.launch_walk(
+        codes, ism, meta, args[2], args[3], rec, cfg=cfg, planes=planes), 5)
+    t0 = time.perf_counter()
+    pmeta, pcodes, pism = nwswg_long.nwswg_long_fwd_reference(
+        *args, cfg=cfg, packed=packed, planes=planes)
+    torch.cuda.synchronize()
+    p6_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    prec = nwswg_long.nwswg_long_walk_reference(
+        pcodes, pism, pmeta, args[2], args[3], cfg=cfg, planes=planes)
+    torch.cuda.synchronize()
+    p7_ms = (time.perf_counter() - t0) * 1e3
+    e6 = max(int((meta.long() - pmeta.long()).abs().max()),
+             code_rows_err(codes, pcodes, args[3]),
+             code_rows_err(ism, pism, args[3]))
+    e7 = int((rec.long() - prec.long()).abs().max())
+    flags = "-b --variant hbm"
+    for name, k_ms, p_ms, err, r in (("nwswg_long_fwd", k6_ms, p6_ms, e6,
+                                      rec),
+                                     ("nwswg_long_walk", k7_ms, p7_ms, e7,
+                                      rec)):
+        bnd = chunk_bound(name, cfg, args, r)
+        report(name, cfg, 4096, flags, STREAM_PAIRS, k_ms, p_ms, 5, err, bnd)
+        out[name] = (k_ms, p_ms, err) + bnd[:2]
     return out
 
 
@@ -692,7 +1099,13 @@ KERNELS = [("wfa2", "wfa", "aim_tpu_torch/csrc/wfa2.cu",
            ("genasm", "genasm", "aim_tpu_torch/csrc/genasm.cu",
             "aim_tpu/ops/genasm_pallas.py:106"),
            ("wfa_long", "wfa_long", "aim_tpu_torch/csrc/wfa_long.cu",
-            "aim_tpu/ops/wfa_pallas_long.py:102")]
+            "aim_tpu/ops/wfa_pallas_long.py:102"),
+           ("nwswg_long_fwd", "nwswg_long_fwd",
+            "aim_tpu_torch/csrc/nwswg_long.cu",
+            "aim_tpu/ops/nwswg_pallas_long.py:220"),
+           ("nwswg_long_walk", "nwswg_long_walk",
+            "aim_tpu_torch/csrc/nwswg_long.cu",
+            "aim_tpu/ops/nwswg_pallas_long.py:585")]
 
 
 def main() -> int:
@@ -701,15 +1114,18 @@ def main() -> int:
     max_err.update(phase_band_kernels())
     max_err["genasm"] = phase_genasm_kernel()
     max_err["wfa_long"] = phase_long_kernel()
+    max_err.update(phase_stream_kernel())
     launches = phase_main(smi)
     timing = phase_timing()
     table = []
     for name, key, src, replaces in KERNELS:
-        k_ms, p_ms, err = timing[key]
+        k_ms, p_ms, err, b_ms, b_by = timing[key]
+        # no single PyTorch call computes banded or wavefront alignment
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[key],
                       "max_abs_err": max(max_err[key], err),
-                      "ms": k_ms, "plain_ms": p_ms})
+                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)
     # the port runs on one device (its CLI caps -d at 1)

@@ -111,6 +111,48 @@ def test_align_file_cpu_generated(tmp_path, argv, n, gen_err):
     assert open(got, "rb").read() == open(ref, "rb").read()
 
 
+@pytest.mark.parametrize("argv,n,gen_err,env,stages", [
+    (["swg", "-l", "1000", "-e", "0.01", "-b", "--variant", "hbm"], 64, 0.01,
+     {}, None),
+    (["swg", "-l", "1000", "-e", "0.01", "--variant", "hbm"], 64, 0.01, {},
+     None),
+    (["genasm", "-l", "600", "-e", "0.05", "-b"], 64, 0.05, {}, None),
+    (["genasm", "-l", "600", "-e", "0.05"], 64, 0.05, {}, None),
+    (["nw", "-l", "1500", "-e", "0.01", "-b", "--variant", "hbm"], 32, 0.01,
+     {}, None),
+    # the primary at C = 63: flagged pairs climb the ladder
+    (["swg", "-l", "1000", "-e", "0.03", "-b", "--variant", "hbm"], 48, 0.05,
+     {"AIM_TPU_ROUTE": "0"}, {4}),
+    # K2 flags most of these; the streamed tier's two planes certify some
+    (["nw", "-l", "100", "-e", "0.01", "-b"], 64, 0.1, {}, {2}),
+], ids=["swg-b", "swg", "genasm-b", "genasm", "nw-b", "swg-b-route0",
+        "nw-k2-ladder"])
+def test_align_file_cpu_long_tiers(tmp_path, monkeypatch, argv, n, gen_err,
+                                   env, stages):
+    """The streamed NW/SWG tier (K6/K7), the GenASM long tier and the
+    band-retry ladder file to file on generated pairs: cmp-equal to the
+    oracle."""
+    from aim_tpu_torch import datagen
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    src = str(tmp_path / "pairs")
+    datagen.write_pair_file(src, n, int(argv[2]), gen_err, seed=3)
+    cfg = _cfg(argv[:1] + ["-i", src, "-o", "unused", "-n", str(n)]
+               + argv[1:])
+    tier = kernels.forward_fn(cfg)
+    if argv[2] != "100":
+        assert tier.records == kernels.PACKED_RUNS and tier.retry is not None
+    got, ref = str(tmp_path / "port"), str(tmp_path / "oracle")
+    res = tapi.align_file(src, got, n, cfg, device="cpu", verbose=False)
+    osc = _oracle_file(ref, cfg, n, src)
+    np.testing.assert_array_equal(res.scores, osc)
+    assert open(got, "rb").read() == open(ref, "rb").read()
+    assert res.n_retry == sum(res.retry_by_planes.values())
+    if stages is not None:
+        assert set(res.retry_by_planes) == stages
+        assert min(res.retry_by_planes.values()) > 0
+
+
 def test_difficulty_sort_as_reference(monkeypatch):
     """The sort order is the reference's; output order is the input's
     whether the sort runs or not; it runs for long reads past 128 pairs,
@@ -197,21 +239,16 @@ def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    # NW past the short-read tier: the streamed tier (id kept from when
-    # the NW short-read tier itself was unported)
-    pytest.param(["nw", "-l", "2500", "-e", "0.01", "--variant", "hbm"],
-                 "ROADMAP Queue 1 item 7",
-                 id="argv0-ROADMAP Queue 1 item 3"),
-    # GenASM past K4's k < 27 gate: the streamed tier (id kept from when
-    # the GenASM short-read tier itself was unported)
-    pytest.param(["genasm", "-l", "100", "-e", "0.14"],
-                 "ROADMAP Queue 1 item 7",
-                 id="argv1-ROADMAP Queue 1 item 4"),
-    # WFA past the long-read tier's smax 1023: the exact XLA tier (id kept
-    # from when the long-read tier itself was unported)
-    pytest.param(["wfa", "-l", "10000", "-e", "0.021", "--variant", "hbm"],
+    # NW past the streamed tier's 16352 (id kept from when the NW
+    # short-read tier itself was unported)
+    pytest.param(["nw", "-l", "20000", "-e", "0.01", "--variant", "hbm"],
                  "ROADMAP Queue 1 item 5",
-                 id="argv2-ROADMAP Queue 1 item 6"),
+                 id="argv0-ROADMAP Queue 1 item 3"),
+    # GenASM past the long tier's k <= 508: the exact host tier (id kept
+    # from when the GenASM short-read tier itself was unported)
+    pytest.param(["genasm", "-l", "2000", "-e", "0.3"],
+                 "ROADMAP Queue 1 item 5",
+                 id="argv1-ROADMAP Queue 1 item 4"),
     (["wfa", "-l", "100", "-e", "0.01", "--backend", "xla"],
      "ROADMAP Queue 1 item 5"),
     (["wfa", "-l", "100", "-e", "0.01", "--energy"],
@@ -240,13 +277,15 @@ def test_cli_reference_messages(capsys):
 
 
 @pytest.mark.parametrize("cfg", [
-    derive_config("nw", 2500, 0.01, backtrace=True, variant="hbm"),
+    # past the streamed tier's 16352
+    derive_config("nw", 20000, 0.01, backtrace=True, variant="hbm"),
     derive_config("swg", 100, 0.01, match=-1, backtrace=True),
     # id kept from when 1 kbp WFA was unported: now past smax 1023
     derive_config("wfa", 10000, 0.021, backtrace=True, adaptive=True,
                   variant="hbm"),
-    # K1's gate rejects it and K5 takes it: the GenASM gate edge instead
-    AlignConfig(algo="genasm", read_size=112, max_score=27),
+    # K1's gate rejects it and K5 takes it: past the GenASM long tier's
+    # k <= 508 instead
+    AlignConfig(algo="genasm", read_size=112, max_score=509),
 ], ids=["nw", "swg", "wfa_l1000", "wfa_smax80"])
 def test_unported_config_raises(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -256,8 +295,11 @@ def test_unported_config_raises(cfg):
         tapi.align(p, t, pl, tl, cfg, device="cpu")
 
 
-_FORBIDDEN = ("jax", "jaxlib", "aim_tpu.ops", "aim_tpu.api",
-              "aim_tpu.parallel")
+def _forbidden(mod: str) -> bool:
+    """jax, and any module of the JAX package (aim_tpu, aim_tpu.*), which
+    the port keeps its own copies of."""
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "aim_tpu")
 
 
 def _imports(path):
@@ -272,29 +314,33 @@ def _imports(path):
                 yield f"{node.module}.{a.name}"
 
 
+PORT_FILES = [os.path.join(r, f)
+              for r, _, fs in os.walk(os.path.join(REPO, "aim_tpu_torch"))
+              for f in fs if f.endswith(".py")]
+
+
 def test_port_has_no_jax_imports_ast():
-    files = [os.path.join(r, f)
-             for r, _, fs in os.walk(os.path.join(REPO, "aim_tpu_torch"))
-             for f in fs if f.endswith(".py")]
-    files += [os.path.join(REPO, f) for f in (
+    files = PORT_FILES + [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "tests/test_torch_gpu.py", "tests/torch_cases.py")]
-    assert len(files) >= 10
+    assert len(files) >= 16
     for path in files:
         for mod in _imports(path):
-            assert not any(mod == f or mod.startswith(f + ".")
-                           for f in _FORBIDDEN), (path, mod)
+            assert not _forbidden(mod), (path, mod)
+    assert not _forbidden("aim_tpu_torch.native") and _forbidden("aim_tpu")
+    assert _forbidden("aim_tpu.native") and _forbidden("jax.numpy")
 
 
 def test_port_import_loads_no_jax():
-    code = ("import sys; pre = 'jax' in sys.modules\n"
-            "import aim_tpu_torch, aim_tpu_torch.api, aim_tpu_torch.cli\n"
-            "import aim_tpu_torch.ops.wfa2, aim_tpu_torch.ops.kernels\n"
-            "import aim_tpu_torch.ops.nw, aim_tpu_torch.ops.swg\n"
-            "import aim_tpu_torch.ops.genasm, aim_tpu_torch.ops.wfa_long\n"
-            "import aim_tpu_torch.ops._build, aim_tpu_torch.ops.common\n"
+    mods = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+        .removesuffix(".__init__") for p in PORT_FILES)
+    assert "aim_tpu_torch.ops.nwswg_long" in mods
+    code = ("import sys; pre = [m for m in sys.modules if m.split('.')[0] "
+            "in ('jax', 'jaxlib', 'aim_tpu')]\n"
+            f"import importlib\nfor m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib') or m.startswith(('aim_tpu.ops', "
-            "'aim_tpu.api', 'aim_tpu.parallel'))]\n"
+            "('jax', 'jaxlib', 'aim_tpu')]\n"
             "print('PRELOADED' if pre else 'BAD' if bad else 'CLEAN', bad)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

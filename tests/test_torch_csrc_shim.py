@@ -20,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from aim_tpu_torch.ops import _build, common, genasm, nw, swg, wfa2, wfa_long
+from aim_tpu_torch.ops import (_build, common, genasm, nw, nwswg_long, swg,
+                               wfa2, wfa_long)
 from torch_cases import (CASES, GENASM_CASES, WFA_LONG_CASES, case,
-                         genasm_case, nwswg_case, nwswg_records,
-                         torch_records, wfa_long_case)
+                         genasm_case, nwswg_case, nwswg_long_case,
+                         nwswg_records, torch_records, wfa_long_case)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LAUNCH = re.compile(r"(\w+)\s*<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>"
@@ -31,6 +32,7 @@ LAUNCH = re.compile(r"(\w+)\s*<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>"
 SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
 NWSWG = ["nw_main_bt", "swg_main_bt", "nw_edges", "swg_edges",
          "nw_ovf_check", "nw_l128", "swg_acgtn"]
+NWSWG_LONG_SHIM = ["nw_p1_r200", "swg_p2_r200"]
 
 
 @pytest.fixture(scope="module")
@@ -163,3 +165,38 @@ def test_wfa_long_cu_matches_plain_version(lib, name, packed_ok):
     np.testing.assert_array_equal(
         got, wfa_long.wfa_long_reference(*args, cfg=cfg,
                                          packed=packed).numpy())
+
+
+@pytest.mark.parametrize("name", NWSWG_LONG_SHIM)
+def test_nwswg_long_cu_matches_plain_version(lib, name):
+    """K6 + K7 (csrc/nwswg_long.cu) under the shim: records equal to the
+    plain versions, the code-row scratch starting as garbage."""
+    cfg, p, t, pl, tl, planes = nwswg_long_case(name)
+    args, packed = _tensors(p, t, pl, tl, cfg.read_size)
+    n, R = len(pl), cfg.read_size
+    NRL = nwswg_long.runs_lanes_long(cfg)
+    cb, ib = nwswg_long.row_bytes(cfg, planes)
+    meta = torch.full((n, 2), -7, dtype=torch.int32)
+    codes = torch.full((n, R, cb), 0xA5, dtype=torch.uint8)
+    ism = torch.full((n, R, ib), 0x5A, dtype=torch.uint8)
+    rec = _records(n, NRL, torch.int16)
+    weff, lpad = nwswg_long.seq_geometry(cfg, args[0].shape[1], packed,
+                                         planes)
+    assert lib.aim_nwswg_long_forward(
+        *(a.data_ptr() for a in args), meta.data_ptr(), codes.data_ptr(),
+        ism.data_ptr(), rec.data_ptr(), n, args[0].shape[1], int(packed),
+        weff, lpad, R, planes, NRL, int(cfg.algo == "swg"),
+        int(cfg.backtrace), cfg.gap_i, cfg.gap_d, cfg.mismatch, cfg.match,
+        cfg.gap_o, cfg.gap_e, cfg.max_score, None) == 0
+    want_meta = nwswg_long.nwswg_long_fwd_reference(
+        *args, cfg=cfg, packed=packed, planes=planes)[0]
+    np.testing.assert_array_equal(meta.numpy(), want_meta.numpy())
+    if cfg.backtrace:
+        assert lib.aim_nwswg_long_walk(
+            codes.data_ptr(), ism.data_ptr(), meta.data_ptr(),
+            args[2].data_ptr(), args[3].data_ptr(), rec.data_ptr(), n, R,
+            planes, NRL, nwswg_long.block_rows(cfg.algo, planes),
+            int(cfg.algo == "swg"), None) == 0
+    np.testing.assert_array_equal(
+        rec.numpy(), nwswg_long.nwswg_forward_long(
+            *args, cfg=cfg, packed=packed, planes=planes).numpy())

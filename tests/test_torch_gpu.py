@@ -15,14 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-import aim_tpu.native as nat
-from aim_tpu.cli import build_parser, config_from_args
+import aim_tpu_torch.native as nat
 from aim_tpu_torch import api as tapi
 from aim_tpu_torch import cli as tcli
-from aim_tpu_torch.ops import common, genasm, nw, swg, wfa2, wfa_long
-from torch_cases import (CASES, GENASM_CASES, MAIN, NWSWG_CASES, SAMPLE_N,
-                         WFA_LONG_CASES, case, datagen_batch, garbage_padded,
-                         genasm_case, nwswg_case, nwswg_records,
+from aim_tpu_torch import datagen
+from aim_tpu_torch.cli import build_parser, config_from_args
+from aim_tpu_torch.ops import (common, genasm, genasm_long, nw, nwswg_long,
+                               swg, wfa2, wfa_long)
+from torch_cases import (CASES, GENASM_CASES, GENASM_LONG_CASES, MAIN,
+                         NWSWG_CASES, NWSWG_LONG_CASES, NWSWG_LONG_WIDE,
+                         SAMPLE_N, WFA_LONG_CASES, case, datagen_batch,
+                         garbage_padded, genasm_case, genasm_long_case,
+                         nwswg_case, nwswg_long_case, nwswg_records,
                          wfa_long_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -246,16 +250,130 @@ def test_cli_genasm_on_gpu(cuda_device, tmp_path, flags):
     out, ref = str(tmp_path / "gpu"), str(tmp_path / "oracle")
     argv = ["genasm", "-i", SAMPLE, "-l", "100", "-e", "0.01",
             "-n", str(SAMPLE_N)] + flags
-    for mod in (genasm, wfa2, nw, swg, wfa_long):
+    for mod in (genasm, wfa2, nw, swg, wfa_long, nwswg_long):
         mod.reset_launch_count()
     assert tcli.main(argv + ["-o", out, "-q"]) == 0
     assert genasm.launch_count > 0
     assert wfa2.launch_count == nw.launch_count == swg.launch_count == \
-        wfa_long.launch_count == 0
+        wfa_long.launch_count == nwswg_long.launch_count == 0
     cfg = config_from_args(build_parser().parse_args(argv))
     p, t, pl, tl = nat.parse_pairs(SAMPLE, SAMPLE_N, cfg.read_size)
     sc, ops, b, e = nat.genasm_align(p, t, pl, tl, max_score=cfg.max_score,
                                      backtrace=cfg.backtrace)
+    nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
+                    cfg.backtrace)
+    assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+def derive_long(algo):
+    from aim_tpu_torch.config import derive_config
+    return derive_config(algo, 1500, 0.01, backtrace=True, variant="hbm")
+
+
+def _long(dev, cfg, p, t, pl, tl, planes, packed, reference=False):
+    """K6 + K7 (or their plain versions) on the batch, 2-bit packed or raw;
+    returns the records and the launches of K6 and K7."""
+    if packed:
+        p, t = common.pack_seqs(p, t, pl, tl, cfg.read_size)[:2]
+    args = common.to_device_batch(p, t, pl, tl, dev)
+    nwswg_long.reset_launch_count()
+    if reference:
+        meta, codes, ism = nwswg_long.nwswg_long_fwd_reference(
+            *args, cfg=cfg, packed=packed, planes=planes)
+        out = (nwswg_long.nwswg_long_walk_reference(
+            codes, ism, meta, args[2], args[3], cfg=cfg, planes=planes)
+            if cfg.backtrace else
+            nwswg_long.score_only_records(meta,
+                                          nwswg_long.runs_lanes_long(cfg)))
+    else:
+        out = nwswg_long.nwswg_forward_long(*args, cfg=cfg, packed=packed,
+                                            planes=planes)
+    torch.cuda.synchronize()
+    return out.cpu().numpy(), (nwswg_long.launch_count,
+                               nwswg_long.walk_launch_count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
+@pytest.mark.parametrize("name", NWSWG_LONG_CASES + NWSWG_LONG_WIDE)
+def test_cuda_nwswg_long_matches_reference(cuda_device, name, packed):
+    """K6/K7 records byte-equal to the plain versions on the card, flagged
+    pairs, planes 1 to 8, NRL 256 to 1024 and score-only runs included."""
+    cfg, p, t, pl, tl, planes = nwswg_long_case(name)
+    got, launches = _long(cuda_device, cfg, p, t, pl, tl, planes, packed)
+    assert launches == (1, int(cfg.backtrace))
+    want, none = _long(cuda_device, cfg, p, t, pl, tl, planes, packed,
+                       reference=True)
+    assert none == (0, 0)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["nw", "swg"])
+def test_cuda_nwswg_long_records_are_per_pair(cuda_device, algo):
+    """A shuffled batch gives the permuted records, one pair alone its row,
+    and bytes past the lengths change nothing."""
+    cfg = derive_long(algo)
+    p, t, pl, tl = datagen.generate_pairs(509, 1500, 0.01,
+                                          read_size=cfg.read_size, seed=5)
+    full, _ = _long(cuda_device, cfg, p, t, pl, tl, 1, False)
+    assert ((full[:, 0].astype(np.int32) >> 8) & 1).any()
+    perm = np.random.default_rng(1).permutation(len(pl))
+    shuf, _ = _long(cuda_device, cfg, p[perm], t[perm], pl[perm], tl[perm],
+                    1, False)
+    np.testing.assert_array_equal(shuf, full[perm])
+    for i in (0, 7, 508):
+        one, _ = _long(cuda_device, cfg, p[i:i + 1], t[i:i + 1],
+                       pl[i:i + 1], tl[i:i + 1], 1, False)
+        np.testing.assert_array_equal(one[0], full[i])
+    gp, gt = garbage_padded(p, t, pl, tl)
+    np.testing.assert_array_equal(
+        _long(cuda_device, cfg, gp, gt, pl, tl, 1, False)[0], full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GENASM_LONG_CASES)
+def test_cuda_genasm_long_matches_reference(cuda_device, name):
+    """The GenASM long tier on the card (K6/K7 and the rewrite on the
+    device) equals it on CPU tensors."""
+    cfg, p, t, pl, tl = genasm_long_case(name)
+    args = common.to_device_batch(p, t, pl, tl, cuda_device)
+    nwswg_long.reset_launch_count()
+    got = genasm_long.genasm_forward_long(*args, cfg=cfg).cpu().numpy()
+    assert nwswg_long.launch_count == 1
+    cpu = common.to_device_batch(p, t, pl, tl, "cpu")
+    np.testing.assert_array_equal(
+        got, genasm_long.genasm_forward_long(*cpu, cfg=cfg).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("argv,n,gen_err,env", [
+    (["nw", "-l", "1500", "-e", "0.01", "-b", "--variant", "hbm"], 300,
+     0.01, {}),
+    (["swg", "-l", "1000", "-e", "0.01", "-b", "--variant", "hbm"], 300,
+     0.01, {}),
+    (["swg", "-l", "1000", "-e", "0.03", "-b", "--variant", "hbm"], 300,
+     0.05, {"AIM_TPU_ROUTE": "0"}),
+    (["genasm", "-l", "600", "-e", "0.05", "-b"], 300, 0.05, {}),
+    (["nw", "-l", "1500", "-e", "0.01", "--variant", "hbm"], 300, 0.01, {}),
+], ids=["nw-b", "swg-b", "swg-b-route0", "genasm-b", "nw"])
+def test_cli_long_tiers_on_gpu(cuda_device, tmp_path, monkeypatch, argv, n,
+                               gen_err, env):
+    """The streamed NW/SWG and GenASM long tiers file to file: cmp-equal to
+    the oracle, through K6 (and K7 with -b)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    src, out, ref = (str(tmp_path / f) for f in ("pairs", "gpu", "oracle"))
+    datagen.write_pair_file(src, n, int(argv[2]), gen_err, seed=3)
+    argv = argv[:1] + ["-i", src, "-n", str(n)] + argv[1:]
+    nwswg_long.reset_launch_count()
+    assert tcli.main(argv + ["-o", out, "-q"]) == 0
+    assert nwswg_long.launch_count > 0
+    assert nwswg_long.walk_launch_count == (nwswg_long.launch_count
+                                            if "-b" in argv else 0)
+    cfg = config_from_args(build_parser().parse_args(argv))
+    p, t, pl, tl = nat.parse_pairs(src, n, cfg.read_size)
+    sc, ops, b, e = tapi._oracle_align(p, t, pl, tl, cfg)
     nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
                     cfg.backtrace)
     assert open(out, "rb").read() == open(ref, "rb").read()

@@ -3,8 +3,10 @@ package's (aim_tpu/ops/pallas_kernels.py).
 
 Over a grid of configs -- every algorithm, 100 bp to 16 kbp, batches that
 2-bit pack and batches that do not -- the port serves a config with the
-kernel that ports the one JAX picks, and raises NotImplementedError naming
-the ROADMAP item of every tier it has not ported yet.  Tolerance: exact.
+kernel that ports the one JAX picks, with the same band-retry ladder
+(whether the tier has one, which, and its primary plane count), and raises
+NotImplementedError naming the ROADMAP item of every tier it has not
+ported yet.  Tolerance: exact.
 """
 
 import re
@@ -13,7 +15,8 @@ import pytest
 
 from aim_tpu.config import AlignConfig, derive_config
 from aim_tpu.ops import pallas_kernels
-from aim_tpu_torch.ops import genasm, kernels, nw, swg, wfa2, wfa_long
+from aim_tpu_torch.ops import (genasm, genasm_long, kernels, nw, nwswg_long,
+                               swg, wfa2, wfa_long)
 
 # the JAX function a tier's closure calls -> the port's kernel, or the
 # ROADMAP item that will port it
@@ -22,26 +25,35 @@ JAX_TIERS = {
     "wfa_forward_pallas_long": "K5",
     "wfa_forward_pallas_long_bytes": "K5",
     "genasm_forward_pallas": "K4",
-    "genasm_forward_pallas_long": "item 7",
+    "genasm_forward_pallas_long": "K6",
     "nw_forward_pallas": "K2",
     "swg_forward_pallas": "K3",
-    "nwswg_forward_pallas_long": "item 7",
+    "nwswg_forward_pallas_long": "K6",
 }
 PORT_KERNELS = {wfa2.wfa_forward2: "K1", nw.nw_forward: "K2",
                 swg.swg_forward: "K3", genasm.genasm_forward: "K4",
-                wfa_long.wfa_forward_long: "K5"}
+                wfa_long.wfa_forward_long: "K5",
+                nwswg_long.nwswg_forward_long: "K6",
+                genasm_long.genasm_forward_long: "K6"}
+# the JAX wide-band retry a tier carries -> the port's
+RETRIES = {"_nwswg_wide_retry": nwswg_long.nwswg_forward_long,
+           "genasm_retry": genasm_long.genasm_forward_long}
 LENGTHS = (100, 150, 250, 500, 1000, 2000, 5000, 10000, 16000)
 ERRORS = (0.005, 0.01, 0.02, 0.05)
 
 
 def jax_tier(cfg, packed_ok):
+    """(kernel or ROADMAP item, retry, primary planes) of JAX's tier."""
     fn = pallas_kernels.forward_fn(cfg, packed_ok=packed_ok)
     if fn is None:
-        return "item 5"  # the exact XLA / host tier
+        return "item 5", None, None  # the exact XLA / host tier
     names = [n for n in fn.__code__.co_freevars + fn.__code__.co_names
              if n in JAX_TIERS]
     assert len(names) == 1, names
-    return JAX_TIERS[names[0]]
+    retry = getattr(fn, "retry_fn", None)
+    return (JAX_TIERS[names[0]],
+            RETRIES[retry.__name__] if retry is not None else None,
+            getattr(fn, "primary_planes", 1))
 
 
 def port_tier(cfg, packed_ok):
@@ -50,8 +62,11 @@ def port_tier(cfg, packed_ok):
     except NotImplementedError as e:
         items = re.findall(r"ROADMAP Queue 1 (item \d+)", str(e))
         assert len(items) == 1, str(e)
-        return items[0]
-    return PORT_KERNELS[tier.forward]
+        return items[0], None, None
+    fwd = getattr(tier.forward, "func", tier.forward)
+    if fwd is not tier.forward:  # the streamed tier at its routed planes
+        assert tier.forward.keywords == {"planes": tier.primary_planes}
+    return PORT_KERNELS[fwd], tier.retry, tier.primary_planes
 
 
 def grid(algo):
@@ -82,18 +97,27 @@ EDGES = {
 
 @pytest.mark.parametrize("algo", ["wfa", "genasm", "nw", "swg"])
 def test_forward_fn_routes_as_reference(algo):
-    seen = set()
+    seen, retried = set(), set()
     for cfg in list(grid(algo)) + EDGES[algo]:
         for packed_ok in (True, False):
             want = jax_tier(cfg, packed_ok)
             assert port_tier(cfg, packed_ok) == want, (cfg, packed_ok)
-            seen.add(want)
-    # the grid reaches every tier of the family
+            seen.add(want[0])
+            retried.add((want[0], want[1] is not None, want[2]))
+    # the grid reaches every tier of the family, with and without a ladder
     expect = {"wfa": {"K1", "K5", "item 5"},
-              "genasm": {"K4", "item 7", "item 5"},
-              "nw": {"K2", "item 7", "item 5"},
-              "swg": {"K3", "item 7", "item 5"}}[algo]
+              "genasm": {"K4", "K6", "item 5"},
+              "nw": {"K2", "K6", "item 5"},
+              "swg": {"K3", "K6", "item 5"}}[algo]
     assert seen == expect, seen
+    if algo in ("nw", "swg"):
+        assert {("K6", True, 1), ("K6", True, 2)} <= retried, retried
+        assert (("K2" if algo == "nw" else "K3"), True, 1) in retried
+    if algo == "swg":
+        assert ("K3", False, 1) in retried  # int8 cells: no ladder
+    if algo == "genasm":
+        assert {("K6", True, 1), ("K6", True, 2), ("K4", False, 1)} \
+            <= retried, retried
 
 
 def test_tier_record_grammar_and_bytes():

@@ -1,16 +1,18 @@
-"""Seeded K1, K2 and K3 input cases shared by the port's CPU tests
-(against the JAX kernels) and its GPU tests (against the plain PyTorch
-versions).  Imports no jax, so the GPU tests run on hosts without it.
+"""Seeded K1 to K7 input cases shared by the port's CPU tests (against the
+JAX kernels) and its GPU tests (against the plain PyTorch versions).
+Imports no jax and nothing of the JAX package (configs and generated
+pairs come from the port's copies), so the GPU tests run on hosts
+without it.
 Imported by its top-level name: pytest puts tests/ first on sys.path, and
 a ``tests`` package installed elsewhere cannot shadow it then."""
 
 import numpy as np
 import torch
 
-from aim_tpu import datagen
-from aim_tpu.config import AlignConfig, derive_config
+from aim_tpu_torch import datagen
+from aim_tpu_torch.config import AlignConfig, derive_config
 from aim_tpu_torch.ops import common
-from util import pack, random_pairs
+from util import make_pair, pack, random_pairs
 
 MAIN = derive_config("wfa", 100, 0.01, backtrace=True, adaptive=True)
 SAMPLE_N = 1000
@@ -320,4 +322,183 @@ def wfa_long_case(name):
         return (cfg, *datagen.generate_pairs(16, 1000, 0.01,
                                              read_size=cfg.read_size,
                                              seed=2))
+    raise KeyError(name)
+
+
+# ---- K6 / K7 (the streamed NW/SWG tier) and the GenASM long tier ----
+
+def subs_pair(rng, lp, nsub):
+    """tests/test_longread.py::_subs_pair: an equal-length pair differing
+    by nsub substitutions (edit distance nsub, no length drift)."""
+    bases = "ACGT"
+    p = [rng.choice(bases) for _ in range(lp)]
+    t = list(p)
+    for pos in rng.sample(range(lp), nsub):
+        t[pos] = bases[(bases.index(t[pos]) + rng.randrange(1, 4)) % 4]
+    return "".join(p), "".join(t)
+
+
+def burst_subs_pair(rng, lp, d):
+    """tests/test_longread.py::_burst_subs_pair: d/3 bursts of three
+    substitutions, spaced at least 4 apart."""
+    bases = "ACGT"
+    p = [rng.choice(bases) for _ in range(lp)]
+    t = list(p)
+    nb = d // 3
+    for i in range(nb):
+        start = i * (lp // nb) + rng.randrange(0, max(1, lp // nb - 6))
+        for pos in range(start, min(start + 3, lp)):
+            t[pos] = bases[(bases.index(t[pos]) + rng.randrange(1, 4)) % 4]
+    return "".join(p), "".join(t)
+
+
+NW_LONG = dict(algo="nw", max_score=300, backtrace=True, gap_i=2, gap_d=3,
+               mismatch=3)
+SWG_LONG = dict(algo="swg", max_score=400, backtrace=True, match=0,
+                mismatch=3, gap_o=4, gap_e=1, variant="hbm")
+
+# the non-slow interpret cases of tests/test_longread.py, by line
+NWSWG_LONG_CASES = ["nw_multiblock", "swg_multiblock", "mixed_p1",
+                    "mixed_p2", "score_only_nw", "score_only_swg",
+                    "nrl1024_p2", "routing_p1", "routing_p2",
+                    "swg_wide_retry", "swg_wide_retry_p2"]
+# planes 4 and 8 (the slow ladder case of :626, and its npl=8 stage)
+NWSWG_LONG_WIDE = ["ladder_p4", "ladder_p8", "swg_wide_retry_p4",
+                   "swg_wide_retry_p8"]
+
+
+def _near_diag(seed, n, lo, hi, R, nerr):
+    import random
+    rng = random.Random(seed)
+    pairs = []
+    for _ in range(n):
+        lp = rng.randrange(lo, hi)
+        pairs.append(make_pair(rng, lp, max(1, lp + rng.choice([-1, 0, 1])),
+                               rng.randrange(0, nerr)))
+    return pack(pairs, R)
+
+
+def nwswg_long_case(name):
+    """(cfg, pats, txts, plens, tlens, planes) of one named K6/K7 case."""
+    import random
+    if name == "nw_multiblock":          # :173, 2 row blocks
+        return (AlignConfig(read_size=576, **NW_LONG),
+                *_near_diag(77, 12, 430, 560, 576, 10), 1)
+    if name == "swg_multiblock":         # :190, 3 row blocks
+        return (AlignConfig(read_size=640, **SWG_LONG),
+                *_near_diag(78, 12, 520, 620, 640, 10), 1)
+    if name.startswith("mixed"):         # :208, empty to full length
+        rng = random.Random(79)
+        pairs = []
+        for lp in (0, 1, 7, 100, 333, 560):
+            lt = max(0, lp + (rng.choice([-1, 0, 1]) if lp > 2 else 0))
+            pairs.append(make_pair(rng, lp, lt, max(0, lp // 64)))
+        return (AlignConfig(read_size=576, **NW_LONG), *pack(pairs, 576),
+                int(name[-1]))
+    if name.startswith("score_only"):    # :667
+        algo = name.split("_")[-1]
+        kw = (dict(algo="nw", gap_i=2, gap_d=3, mismatch=3, max_score=60)
+              if algo == "nw" else
+              dict(algo="swg", match=0, mismatch=3, gap_o=4, gap_e=1,
+                   max_score=400))
+        cfg = AlignConfig(read_size=96, variant="hbm", backtrace=False, **kw)
+        pairs = random_pairs(seed=7, n=128, max_len=90, balanced=False)
+        return (cfg, *pack(pairs, 96), 1)
+    if name == "nrl1024_p2":             # :783, runs past 256 lanes
+        rng = np.random.default_rng(41)
+        R, length = 640, 600
+        bases = np.frombuffer(b"ACGT", np.uint8)
+        pats = np.zeros((8, R), np.uint8)
+        txts = np.zeros((8, R), np.uint8)
+        for i, nsub in enumerate((140, 180, 200, 240, 140, 180, 200, 240)):
+            p = bases[rng.integers(0, 4, length)]
+            t = p.copy()
+            idx = np.arange(0, 2 * nsub, 2)
+            t[idx] = bases[(np.searchsorted(bases, t[idx]) + 1) % 4]
+            pats[i, :length] = p
+            txts[i, :length] = t
+        cfg = AlignConfig(algo="nw", read_size=R, max_score=400,
+                          backtrace=True, gap_i=1, gap_d=1, mismatch=1)
+        return (cfg, pats, txts, np.full(8, length, np.int32),
+                np.full(8, length, np.int32), 2)
+    if name.startswith("routing"):       # :874
+        rng = random.Random(17)
+        pairs = [make_pair(rng, 40, 40, rng.randrange(0, 26))
+                 for _ in range(8)]
+        cfg = AlignConfig(algo="swg", read_size=48, max_score=260, match=0,
+                          mismatch=3, gap_o=4, gap_e=1, backtrace=True,
+                          variant="hbm")
+        return (cfg, *pack(pairs, 48), int(name[-1]))
+    if name.startswith("swg_wide_retry"):   # :304, flags at one plane
+        return (AlignConfig(read_size=640, **SWG_LONG), *wide_retry_batch(),
+                int(name[-1]) if name[-1].isdigit() else 1)
+    if name.startswith("ladder"):        # :626, skew 141
+        rng = random.Random(53)
+        pairs = [make_pair(rng, 280, 280 + 141, 3),
+                 make_pair(rng, 300, 300, 2)]
+        cfg = AlignConfig(algo="nw", read_size=576, max_score=300,
+                          backtrace=True, gap_i=2, gap_d=5, mismatch=1,
+                          variant="hbm")
+        return (cfg, *pack(pairs, 576), int(name[-1]))
+    if name == "nw_p1_r200":
+        # small cases for the CUDA source under the CPU shim
+        cfg = AlignConfig(algo="nw", read_size=200, max_score=60,
+                          backtrace=True, gap_i=2, gap_d=3, mismatch=3)
+        return (cfg, *pack(random_pairs(seed=5, n=8, max_len=190,
+                                        balanced=False), 200), 1)
+    if name == "swg_p2_r200":
+        cfg = AlignConfig(read_size=200, **SWG_LONG)
+        return (cfg, *pack(random_pairs(seed=6, n=8, max_len=190,
+                                        balanced=False), 200), 2)
+    raise KeyError(name)
+
+
+def wide_retry_batch():
+    """tests/test_longread.py:304: four pairs past the one-plane SWG
+    envelope, one inside it, one aliasing pair (plen > tlen + 1)."""
+    import random
+    rng = random.Random(97)
+    pairs = []
+    for _ in range(4):
+        lp = rng.randrange(560, 620)
+        pairs.append(subs_pair(rng, lp, rng.randrange(51, 70)))
+    pairs.append(make_pair(rng, 600, 600, 3))
+    pairs.append(make_pair(rng, 200, 150, 0))
+    return pack(pairs, 640)
+
+
+GENASM_LONG_CASES = ["k40_r576", "k40_r576_nobt", "k160_r640"]
+
+
+def genasm_long_case(name):
+    """(cfg, pats, txts, plens, tlens) of one named GenASM long-tier case
+    (tests/test_longread.py:224 and :354)."""
+    import random
+    if name.startswith("k40"):
+        rng = random.Random(83)
+        pairs = []
+        for _ in range(8):
+            lp = rng.randrange(430, 560)
+            pairs.append(make_pair(rng, lp, max(1, lp + rng.choice(
+                [-1, 0, 1])), rng.randrange(0, 12)))
+        for _ in range(3):
+            lp = rng.randrange(430, 560)
+            pairs.append(make_pair(rng, lp, lp, rng.randrange(55, 80)))
+        pairs.append(make_pair(rng, 500, 380, 0))
+        pairs.append(make_pair(rng, 0, 37, 0))
+        pairs.append(make_pair(rng, 0, 52, 0))
+        cfg = AlignConfig(algo="genasm", read_size=576, max_score=40,
+                          backtrace=not name.endswith("nobt"), mismatch=1,
+                          gap_i=1, gap_d=1, variant="hbm")
+        return (cfg, *pack(pairs, 576))
+    if name == "k160_r640":
+        rng = random.Random(101)
+        pairs = [subs_pair(rng, 560, 40), subs_pair(rng, 600, 90),
+                 burst_subs_pair(rng, 580, 150),
+                 burst_subs_pair(rng, 610, 200), subs_pair(rng, 590, 150),
+                 burst_subs_pair(rng, 540, 135)]
+        cfg = AlignConfig(algo="genasm", read_size=640, max_score=160,
+                          backtrace=True, mismatch=1, gap_i=1, gap_d=1,
+                          variant="hbm")
+        return (cfg, *pack(pairs, 640))
     raise KeyError(name)
