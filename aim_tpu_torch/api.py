@@ -45,10 +45,9 @@ class AlignResult:
     # re-ran; WFA and the GenASM short tier never flag
     n_fallback: int = 0
     # flagged pairs a wider band of the retry ladder certified, in all and
-    # by plane count, and the pairs each stage was sent
+    # by plane count
     n_retry: int = 0
     retry_by_planes: dict = field(default_factory=dict)
-    retry_sent_by_planes: dict = field(default_factory=dict)
 
 
 def _sync(device: torch.device):
@@ -139,8 +138,7 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
         res.end[inv] if res.end is not None else None,
         t_load=res.t_load + t_sort, t_kernel=res.t_kernel,
         t_retrieve=res.t_retrieve, n_fallback=res.n_fallback,
-        n_retry=res.n_retry, retry_by_planes=res.retry_by_planes,
-        retry_sent_by_planes=res.retry_sent_by_planes)
+        n_retry=res.n_retry, retry_by_planes=res.retry_by_planes)
 
 
 def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
@@ -224,7 +222,7 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         for p in retry_stages:
             if not len(sel):
                 break
-            sel = _retry_wide(fwd.retry, cfg, pats[chunk], txts[chunk],
+            sel = _retry_wide(fwd, cfg, pats[chunk], txts[chunk],
                               plens[chunk], tlens[chunk], sel, scores, ops,
                               begin, end, lo, max_ops, device, res, planes=p)
         if not len(sel):
@@ -271,20 +269,11 @@ def _retry_stages(tier) -> tuple:
     return tuple(sorted(p for p in stages if p > primary))
 
 
-def _retry_budget_bytes(cfg: AlignConfig, planes: int) -> int:
-    """Device bytes a pair holds on the retry tier at ``planes``."""
-    if cfg.algo == ALGO_GENASM:
-        from aim_tpu_torch.ops.genasm_long import bytes_per_pair
-        return bytes_per_pair(cfg, planes)
-    from aim_tpu_torch.ops.nwswg_long import device_bytes_per_pair
-    return device_bytes_per_pair(cfg, planes)
-
-
-def _retry_wide(retry, cfg: AlignConfig, cpats, ctxts, cplens, ctlens, sel,
+def _retry_wide(tier, cfg: AlignConfig, cpats, ctxts, cplens, ctlens, sel,
                 scores, ops, begin, end, lo, max_ops, device,
                 res: AlignResult, planes: int = 2):
     """Re-run a chunk's flagged pairs ``sel`` (indices into the chunk) on
-    the retry tier at ``planes`` planes (band half-width 64*planes - 1),
+    ``tier``'s retry at ``planes`` planes (band half-width 64*planes - 1),
     as ``aim_tpu/api.py::_retry_wide`` does: pairs this band flags for
     host-computable reasons are skipped, batches are capped by device
     memory (at most 8192, a power of two), certified pairs land their
@@ -304,29 +293,27 @@ def _retry_wide(retry, cfg: AlignConfig, cpats, ctxts, cplens, ctlens, sel,
         keep = sel[~unfix]
         if not len(keep):
             return sel
-        left = _retry_wide(retry, cfg, cpats, ctxts, cplens, ctlens, keep,
+        left = _retry_wide(tier, cfg, cpats, ctxts, cplens, ctlens, keep,
                            scores, ops, begin, end, lo, max_ops, device, res,
                            planes)
         return np.sort(np.concatenate([sel[unfix], left]))
     cap = 128
     budget_cap = _memory_batch_cap(
         cfg, torch.device(device),
-        per_pair=_retry_budget_bytes(cfg, planes))
+        per_pair=tier.retry_bytes_per_pair(planes))
     while cap * 2 <= min(8192, budget_cap):
         cap *= 2
     if len(sel) > cap:
         return np.concatenate([
-            _retry_wide(retry, cfg, cpats, ctxts, cplens, ctlens,
+            _retry_wide(tier, cfg, cpats, ctxts, cplens, ctlens,
                         sel[s0:s0 + cap], scores, ops, begin, end, lo,
                         max_ops, device, res, planes)
             for s0 in range(0, len(sel), cap)])
     rpl = cplens[sel].astype(np.int32)
     rtl = ctlens[sel].astype(np.int32)
     args = to_device_batch(cpats[sel], ctxts[sel], rpl, rtl, device)
-    res.retry_sent_by_planes[planes] = \
-        res.retry_sent_by_planes.get(planes, 0) + len(sel)
     pr = np.ascontiguousarray(
-        retry(*args, cfg=cfg, planes=planes).cpu().numpy())
+        tier.retry(*args, cfg=cfg, planes=planes).cpu().numpy())
     sc2 = pr[:, 1].astype(np.int32)
     fb2 = ((pr[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
     good = ~fb2
@@ -401,8 +388,8 @@ def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
     """The dpu-out analogue: one line for the device with its run."""
     device = torch.device(device)
     label = f"GPU {device.index or 0}" if device.type == "cuda" else "CPU"
-    stages = ",".join(f"{p}:{res.retry_by_planes.get(p, 0)}/{k}" for p, k in
-                      sorted(res.retry_sent_by_planes.items())) or "-"
+    stages = ",".join(f"{p}:{k}" for p, k in
+                      sorted(res.retry_by_planes.items())) or "-"
     with open(path, "w") as f:
         f.write(f"{label}: {device_name(device)} | "
                 f"algo={cfg.algo} max_score={cfg.max_score} "

@@ -36,22 +36,29 @@ class Tier:
     """A kernel tier: its wrapper, the record grammar it emits, the device
     memory one pair holds during a call, and the band-retry ladder: the
     wide-band wrapper flagged pairs re-run on (``retry(*tensors, cfg=,
-    planes=)``, None without one) and the plane count of the primary band,
-    below which no ladder stage runs."""
+    planes=)``, None without one), the device memory one pair holds there
+    (``retry_bytes_per_pair(planes)``) and the plane count of the primary
+    band, below which no ladder stage runs."""
     forward: Callable
     records: str
     device_bytes_per_pair: int
     retry: Callable | None = None
+    retry_bytes_per_pair: Callable[[int], int] | None = None
     primary_planes: int = 1
 
     def __call__(self, *args, **kw):
         return self.forward(*args, **kw)
 
 
-def _wide_retry(cfg: AlignConfig):
+def _wide_retry(cfg: AlignConfig) -> dict:
     """The streamed tier as the wide-band retry of an NW/SWG tier, where
-    it admits the config (pallas_kernels.py::_attach_wide_retry)."""
-    return nwswg_long.nwswg_forward_long if long_fit_nwswg(cfg) else None
+    it admits the config (pallas_kernels.py::_attach_wide_retry): the
+    ``Tier`` fields of the ladder, or none."""
+    if not long_fit_nwswg(cfg):
+        return {}
+    return dict(retry=nwswg_long.nwswg_forward_long,
+                retry_bytes_per_pair=functools.partial(
+                    nwswg_long.device_bytes_per_pair, cfg))
 
 
 def _streamed(cfg: AlignConfig) -> Tier:
@@ -60,7 +67,7 @@ def _streamed(cfg: AlignConfig) -> Tier:
     p0 = nwswg_long.route_planes(cfg)
     return Tier(functools.partial(nwswg_long.nwswg_forward_long, planes=p0),
                 PACKED_RUNS, nwswg_long.device_bytes_per_pair(cfg, p0),
-                retry=nwswg_long.nwswg_forward_long, primary_planes=p0)
+                primary_planes=p0, **_wide_retry(cfg))
 
 
 def forward_fn(cfg: AlignConfig, packed_ok: bool = True) -> Tier:
@@ -97,10 +104,10 @@ def forward_fn(cfg: AlignConfig, packed_ok: bool = True) -> Tier:
             + _XLA)
     if cfg.algo == ALGO_NW and nw.vmem_fit_nw(cfg):
         return Tier(nw.nw_forward, PACKED_RUNS, nw.device_bytes_per_pair(cfg),
-                    retry=_wide_retry(cfg))
+                    **_wide_retry(cfg))
     if cfg.algo == ALGO_SWG and swg.admitted(cfg):
         return Tier(swg.swg_forward, PACKED_RUNS,
-                    swg.device_bytes_per_pair(cfg), retry=_wide_retry(cfg))
+                    swg.device_bytes_per_pair(cfg), **_wide_retry(cfg))
     if cfg.algo in (ALGO_NW, ALGO_SWG):
         if long_fit_nwswg(cfg):
             return _streamed(cfg)
@@ -117,6 +124,8 @@ def forward_fn(cfg: AlignConfig, packed_ok: bool = True) -> Tier:
             return Tier(genasm_long.genasm_forward_long, PACKED_RUNS,
                         genasm_long.bytes_per_pair(cfg),
                         retry=genasm_long.genasm_forward_long,
+                        retry_bytes_per_pair=functools.partial(
+                            genasm_long.bytes_per_pair, cfg),
                         primary_planes=genasm_long._npl(cfg))
         raise NotImplementedError(
             f"genasm read_size={cfg.read_size} max_score={cfg.max_score} "

@@ -16,8 +16,10 @@ before the last line:
               long-read configs of 16 to 4096 pairs; K6/K7
               (csrc/nwswg_long.cu) on NW and SWG at planes 1, 2, 4 and 8,
               with and without backtrace, raw and packed, records of 256 to
-              1024 lanes, flagged pairs, and the GenASM adapter at k in each
-              of its plane bands (K6 on meta and code rows, K7 on records).
+              1024 lanes, flagged pairs, the raw two-plane shape the retry
+              ladder hands them behind K2 and K3, and the GenASM adapter at
+              k in each of its plane bands (K6 on meta and code rows, K7 and
+              the wrapper nwswg_forward_long on records).
   3. main     the CLI paths: `wfa -l 100 -e 0.01 -b -r` (the main path),
               `nw -b`, `nw`, `swg -b`, `swg`, `genasm -b` and `genasm` at
               the same -l/-e, each on the same 1,000,000 generated pairs;
@@ -28,12 +30,15 @@ before the last line:
               `nw` (score only) on 4,096 generated pairs, `swg ... -b` on
               2,048 of them (also under AIM_TPU_ROUTE=0, where the primary
               band is C = 63 and the retry ladder climbs), and `genasm -l
-              4096 -e 0.01 -b` on the 4,096.  Every output file must equal
-              the oracle's byte for byte; every launch counter is set to 0
-              just before each run and read just after, and the run's own
-              kernels must have launched and no other.  The 100 bp and WFA
-              runs must flag no pair; the streamed runs report the pairs
-              the ladder certified at each stage and the oracle re-ran.
+              4096 -e 0.01 -b` on the 4,096; K2's retry ladder: `nw -l 100
+              -e 0.01 -b` and `nw` on 4,096 pairs generated at 10 % errors,
+              which K2 flags and K6/K7 re-run at two planes.  Every output
+              file must equal the oracle's byte for byte; every launch
+              counter is set to 0 just before each run and read just after,
+              and the run's own kernels must have launched and no other.  The 100 bp and WFA
+              runs must flag no pair, the ladder runs aside; the streamed
+              and ladder runs report the pairs the ladder certified at each
+              stage and the oracle re-ran.
   4. timing   each kernel vs its plain version on one chunk of its
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
               pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
@@ -71,6 +76,10 @@ STREAM_SWG_PAIRS = 2_048
 # the ladder's run: this many pairs at each error rate, one file
 LADDER_ERRORS = (0.01, 0.025, 0.035)
 LADDER_PAIRS_EACH = 640
+# K2's ladder at 100 bp: pairs at 10 % errors run at -e 0.01, so that K2
+# flags nearly all of them and K6/K7 re-run them at two planes
+LADDER_100_PAIRS = 4_096
+LADDER_100_LABEL = "datagen-100bp-e10"
 # The card's peaks for the bounds (H100 SXM data sheet and white paper, at
 # the 700 W limit): HBM3 bytes a second; int32 operations a second (132 SMs
 # x 64 INT32 lanes x 1.98 GHz boost clock).
@@ -552,6 +561,18 @@ def stream_configs():
     for case in ("swg_wide_retry", "ladder_p4", "ladder_p8", "nrl1024_p2"):
         cfg, p, t, pl, tl, planes = nwswg_long_case(case)
         out.append((f"case_{case}", cfg, (p, t, pl, tl), planes, False))
+    # the shape the ladder hands K6/K7 behind K2 and K3: raw bytes, two
+    # planes, at 100 bp on 10 % errors (K2 flags nearly every pair) and on
+    # K3's int16 cells
+    nw1 = derive_config("nw", 100, 0.01, backtrace=True)
+    e10 = datagen.generate_pairs(4096, 100, 0.1, read_size=112, seed=SEED)
+    swg48 = AlignConfig(algo="swg", read_size=48, max_score=60, match=0,
+                        mismatch=7, gap_o=2, gap_e=3, variant="hbm",
+                        backtrace=True)
+    out += [("retry_nw_R112_p2_bt", nw1, e10, 2, False),
+            ("retry_nw_R112_p2_nobt", nw1.replace(backtrace=False), e10, 2,
+             False),
+            ("retry_swg_int16_R48_p2_bt", swg48, fuzz_batch(48), 2, False)]
     return out
 
 
@@ -617,14 +638,25 @@ def phase_stream_kernel():
         want = plain_long(args, cfg, planes, packed)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
+        # the wrapper the main path calls: its checks, its choice of K7
+        before = (L.launch_count, L.walk_launch_count)
+        wrapped = L.nwswg_forward_long(*args, cfg=cfg, packed=packed,
+                                       planes=planes)
+        torch.cuda.synchronize()
+        if (L.launch_count - before[0], L.walk_launch_count - before[1]) \
+                != (1, int(cfg.backtrace)):
+            fail(f"{name}: the wrapper's launches were not K6 + K7")
         e6 = int((got[0].long() - want[0].long()).abs().max())
         rows6 = rows_differ(got[0], want[0])
         if cfg.backtrace:
             e6 = max(e6, code_rows_err(got[1], want[1], args[3]),
                      code_rows_err(got[2], want[2], args[3]))
         rec, ref = got[3].cpu().numpy(), want[3].cpu().numpy()
-        e7 = int(np.abs(rec.astype(np.int64) - ref).max())
+        wrapped = wrapped.cpu().numpy()
+        e7 = int(max(np.abs(rec.astype(np.int64) - ref).max(),
+                     np.abs(wrapped.astype(np.int64) - ref).max()))
         rows7 = int((rec != ref).any(1).sum())
+        rows_w = int((wrapped != ref).any(1).sum())
         err["nwswg_long_fwd"] = max(err["nwswg_long_fwd"], e6)
         err["nwswg_long_walk"] = max(err["nwswg_long_walk"], e7)
         lane0 = rec[:, 0].astype(np.int32)
@@ -656,11 +688,14 @@ def phase_stream_kernel():
               "cursor_hi_pairs": int(((lane0 >> 10) > 0).sum()),
               "oracle_checked": checked,
               "meta_rows_differ": rows6, "record_rows_differ": rows7,
+              "wrapper_rows_differ": rows_w,
               "k6_max_abs_err": e6, "k7_max_abs_err": e7,
               "score_bad": score_bad, "cigar_bad": cigar_bad,
               "kernel_s": t_kernel, "plain_s": t_plain})
-        if rows6 or rows7 or e6 or score_bad or cigar_bad:
+        if rows6 or rows7 or rows_w or e6 or score_bad or cigar_bad:
             fail(f"{name}: kernel disagrees")
+        if name.startswith("retry_nw") and flagged.all():
+            fail(f"{name}: expected pairs certified at two planes")
         if name.startswith("case_swg_wide") and flagged.sum() < 5:
             fail(f"{name}: expected the band and alias flags")
         if name == "swg_wrap_R1040_p2" and not 0 < flagged.sum() < len(pl):
@@ -812,15 +847,11 @@ STREAM_KERNELS = ("nwswg_long_fwd", "nwswg_long_walk")
 
 
 def ladder_stages(log):
-    """{planes: (pairs sent, pairs certified)} from a device log."""
+    """{planes: pairs certified} from a device log."""
     if log.get("retry_by_planes", "-") == "-":
         return {}
-    out = {}
-    for item in log["retry_by_planes"].split(","):
-        planes, counts = item.split(":")
-        done, sent = counts.split("/")
-        out[int(planes)] = (int(sent), int(done))
-    return out
+    return {int(p): int(k) for p, k in
+            (item.split(":") for item in log["retry_by_planes"].split(","))}
 
 
 def phase_main(smi):
@@ -846,6 +877,9 @@ def phase_main(smi):
         datagen.write_pair_file(inp_4k["4k"], STREAM_PAIRS, 4096, 0.01,
                                 seed=SEED)
         t_gen_4k = time.perf_counter() - t0
+        inp_e10 = os.path.join(tmp, "pairs_e10.txt")
+        datagen.write_pair_file(inp_e10, LADDER_100_PAIRS, 100, 0.1,
+                                seed=SEED + 6)
         half = os.path.join(tmp, "half.txt")
         with open(inp_4k["4k_mixed"], "wb") as out:
             for err in LADDER_ERRORS:
@@ -865,7 +899,10 @@ def phase_main(smi):
             [(inp_4k[src], n, a, ["-l", "4096"] + f,
               STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1],
               "datagen-4kbp", t_gen_4k if src == "4k" else None, env)
-             for a, f, src, n, env in STREAM_RUNS]
+             for a, f, src, n, env in STREAM_RUNS] + \
+            [(inp_e10, LADDER_100_PAIRS, "nw", hundred + f,
+              ("nw",) + (STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1]),
+              LADDER_100_LABEL, None, {}) for f in (["-b"], [])]
         # t_src: the generation time, on the runs over a whole generated
         # file; their `-b` runs get the one-thread oracle rate
         for i, (src, n, algo, flags, kerns, label, t_src, env) in \
@@ -885,8 +922,7 @@ def phase_main(smi):
                    "launches": launches[kern], "launches_all": launches,
                    "fallback": int(log["fallback"]),
                    "retry": int(log["retry"]),
-                   "retry_stages": {p: {"sent": a, "certified": b}
-                                    for p, (a, b) in stages.items()},
+                   "retry_stages": stages,
                    "t_load_s": float(log["load_s"]),
                    "t_kernel_s": float(log["kernel_s"]),
                    "t_retrieve_s": float(log["retrieve_s"]),
@@ -917,15 +953,17 @@ def phase_main(smi):
             if not same:
                 fail(f"{argv}: output differs from the oracle")
             others = sum(v for k, v in launches.items() if k not in kerns)
-            flag_ok = int(log["fallback"]) == 0 or label == "datagen-4kbp"
+            flag_ok = int(log["fallback"]) == 0 or label in (
+                "datagen-4kbp", LADDER_100_LABEL)
             if not flag_ok or min(launches[k] for k in kerns) <= 0 \
                     or others or n_done != n:
                 fail(f"{argv}: fallback={log['fallback']} "
                      f"launches={launches} pairs={n_done}")
-            if any(sent and not done for sent, done in stages.values()):
-                fail(f"{argv}: a ladder stage certified no pair: {stages}")
             if env.get("AIM_TPU_ROUTE") == "0" and set(stages) != {2, 4, 8}:
                 fail(f"{argv}: expected ladder stages 2, 4 and 8: {stages}")
+            if label == LADDER_100_LABEL and not stages.get(2):
+                fail(f"{argv}: expected pairs certified at two planes: "
+                     f"{stages}")
     return main_launches
 
 

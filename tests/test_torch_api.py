@@ -249,6 +249,11 @@ def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
     pytest.param(["genasm", "-l", "2000", "-e", "0.3"],
                  "ROADMAP Queue 1 item 5",
                  id="argv1-ROADMAP Queue 1 item 4"),
+    # WFA past the long-read tier's smax 1023: the exact XLA tier (id kept
+    # from when the long-read tier itself was unported)
+    pytest.param(["wfa", "-l", "10000", "-e", "0.021", "--variant", "hbm"],
+                 "ROADMAP Queue 1 item 5",
+                 id="argv2-ROADMAP Queue 1 item 6"),
     (["wfa", "-l", "100", "-e", "0.01", "--backend", "xla"],
      "ROADMAP Queue 1 item 5"),
     (["wfa", "-l", "100", "-e", "0.01", "--energy"],

@@ -11,6 +11,7 @@ pairs as ``aim_tpu.api._retry_wide`` (:304, :475, :582).  Tolerance:
 exact.
 """
 
+from dataclasses import replace
 from functools import partial
 
 import numpy as np
@@ -127,6 +128,14 @@ def test_retry_stages_match_reference(monkeypatch, capsys, env):
         assert capsys.readouterr().err == want_err  # the same warnings
 
 
+def _tier(cfg, retry=None):
+    """The port's tier for ``cfg``, its retry replaced by a stub if given
+    (the ladder's memory cap stays the tier's own)."""
+    tier = kernels.forward_fn(cfg)
+    assert tier.retry is not None and tier.retry_bytes_per_pair is not None
+    return tier if retry is None else replace(tier, retry=retry)
+
+
 def _buffers(n, R):
     return (np.zeros(n, np.int32), np.zeros((n, 2 * R), np.uint8),
             np.zeros(n, np.int32), np.zeros(n, np.int32))
@@ -153,9 +162,10 @@ def test_retry_wide_plain_matches_reference():
                 t, pl, tl, sel, sc, ops, b, e, 0, 2 * R, lambda a: a, res)
         else:
             res = tapi.AlignResult(sc, ops, b, e)
-            left = tapi._retry_wide(nwswg_long.nwswg_forward_long, cfg, p, t,
-                                    pl, tl, sel, sc, ops, b, e, 0, 2 * R,
-                                    "cpu", res)
+            tier = _tier(cfg)
+            assert tier.retry is nwswg_long.nwswg_forward_long
+            left = tapi._retry_wide(tier, cfg, p, t, pl, tl, sel, sc, ops,
+                                    b, e, 0, 2 * R, "cpu", res)
             assert res.retry_by_planes == {2: 4}
         out[who] = (list(left), res.n_retry, sc, ops, b, e)
     assert out["port"][:2] == out["jax"][:2] == ([5], 4)
@@ -209,7 +219,7 @@ def test_retry_wide_chunking_and_skip_match_reference():
                              np.arange(n), jres.scores, None, None, None, 0,
                              2 * R, lambda a: a, jres)
     pres = tapi.AlignResult(np.zeros(n, np.int32), None, None, None)
-    pleft = tapi._retry_wide(port_stub, cfg, pats, pats, pl, tl,
+    pleft = tapi._retry_wide(_tier(cfg, port_stub), cfg, pats, pats, pl, tl,
                              np.arange(n), pres.scores, None, None, None, 0,
                              2 * R, "cpu", pres)
     np.testing.assert_array_equal(pleft, jleft)
@@ -220,12 +230,14 @@ def test_retry_wide_chunking_and_skip_match_reference():
     # a small memory budget splits the batch into power-of-two pieces
     calls["port"].clear()
     res = tapi.AlignResult(np.zeros(n, np.int32), None, None, None)
-    per = tapi._retry_budget_bytes(cfg, 2)
+    per = _tier(cfg).retry_bytes_per_pair(2)
+    assert per == nwswg_long.device_bytes_per_pair(cfg, 2)
     orig = tapi._device_memory_budget
     tapi._device_memory_budget = lambda device: 300 * per
     try:
-        tapi._retry_wide(port_stub, cfg, pats, pats, pl, tl, np.arange(n),
-                         res.scores, None, None, None, 0, 2 * R, "cpu", res)
+        tapi._retry_wide(_tier(cfg, port_stub), cfg, pats, pats, pl, tl,
+                         np.arange(n), res.scores, None, None, None, 0, 2 * R,
+                         "cpu", res)
     finally:
         tapi._device_memory_budget = orig
     assert [m for _, m in calls["port"]] == [256, 256, 186]
@@ -243,7 +255,7 @@ def test_retry_ladder_escalation_matches_reference():
     pats = np.zeros((n, R), np.uint8)
     jax_stub, port_stub, calls = _stub_pair(by_planes=True)
     results = {}
-    for who, stub in (("jax", jax_stub), ("port", port_stub)):
+    for who, stub in (("jax", jax_stub), ("port", _tier(cfg, port_stub))):
         mod = japi if who == "jax" else tapi
         res = mod.AlignResult(np.zeros(n, np.int32), None, None, None)
         sel = np.arange(n)
@@ -272,5 +284,6 @@ def test_failed_retry_launch_raises():
         raise RuntimeError("K6 (nwswg_long forward) launch failed")
     res = tapi.AlignResult(np.zeros(n, np.int32), None, None, None)
     with pytest.raises(RuntimeError, match="launch failed"):
-        tapi._retry_wide(broken, cfg, pats, pats, lens, lens, np.arange(n),
-                         res.scores, None, None, None, 0, 2 * R, "cpu", res)
+        tapi._retry_wide(_tier(cfg, broken), cfg, pats, pats, lens, lens,
+                         np.arange(n), res.scores, None, None, None, 0, 2 * R,
+                         "cpu", res)

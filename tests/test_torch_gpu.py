@@ -356,11 +356,15 @@ def test_cuda_genasm_long_matches_reference(cuda_device, name):
      0.05, {"AIM_TPU_ROUTE": "0"}),
     (["genasm", "-l", "600", "-e", "0.05", "-b"], 300, 0.05, {}),
     (["nw", "-l", "1500", "-e", "0.01", "--variant", "hbm"], 300, 0.01, {}),
-], ids=["nw-b", "swg-b", "swg-b-route0", "genasm-b", "nw"])
+    # 10 % errors against K2's band at 100 bp: the ladder re-runs the
+    # flagged pairs on K6/K7 at two planes
+    (["nw", "-l", "100", "-e", "0.01", "-b"], 300, 0.1, {}),
+], ids=["nw-b", "swg-b", "swg-b-route0", "genasm-b", "nw", "nw-100-ladder"])
 def test_cli_long_tiers_on_gpu(cuda_device, tmp_path, monkeypatch, argv, n,
                                gen_err, env):
-    """The streamed NW/SWG and GenASM long tiers file to file: cmp-equal to
-    the oracle, through K6 (and K7 with -b)."""
+    """The streamed NW/SWG and GenASM long tiers, and K2's retry ladder on
+    them, file to file: cmp-equal to the oracle, through K6 (and K7 with
+    -b)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     src, out, ref = (str(tmp_path / f) for f in ("pairs", "gpu", "oracle"))

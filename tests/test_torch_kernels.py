@@ -133,3 +133,15 @@ def test_tier_record_grammar_and_bytes():
     assert tier.device_bytes_per_pair > wfa_long.hist_bytes_per_pair(long_)
     # the long-tier history caps a chunk far below batch_pairs
     assert (40 << 30) // tier.device_bytes_per_pair < long_.batch_pairs
+    assert tier.retry is None and tier.retry_bytes_per_pair is None
+    # the ladder's footprint is its retry tier's at each plane count
+    for cfg in (derive_config("nw", 100, 0.01, backtrace=True),
+                derive_config("swg", 4096, 0.01, backtrace=True,
+                              variant="hbm")):
+        tier = kernels.forward_fn(cfg)
+        for planes in (2, 4, 8):
+            assert tier.retry_bytes_per_pair(planes) == \
+                nwswg_long.device_bytes_per_pair(cfg, planes)
+    g = derive_config("genasm", 4096, 0.01, backtrace=True)
+    tier = kernels.forward_fn(g)
+    assert tier.retry_bytes_per_pair(4) == genasm_long.bytes_per_pair(g, 4)
