@@ -17,7 +17,13 @@ Ported so far: the short-read tiers of WFA / WFA-adaptive (the reference's
 (``ops/wfa_pallas_long.py``, reads of 1-16 kbp), and the streamed NW/SWG
 long-read tier (``ops/nwswg_pallas_long.py``) with its band-retry ladder
 and the GenASM long tier on it (``ops/genasm_long.py``).  Every other
-configuration raises ``NotImplementedError`` naming its ROADMAP item.
+configuration, and every one under ``backend="xla"``, runs on the exact
+tiers: the dense NW, SWG and WFA tiers in plain PyTorch on the device
+(the reference's ``ops/{nw,swg,wfa}_xla.py``) and GenASM's host tier.
+The reference's two TPU probes (``tools/microbench_mosaic.py``) are CUDA
+probes (``ops/probes.py``, ``csrc/probes.cu``); the tools run as
+``python -m aim_tpu_torch.tools.<name>`` (``fuzz_kernels``,
+``microbench``; ``timing`` is their timing library).
 
 Importing this package never builds a kernel and never needs CUDA.
 """

@@ -1,13 +1,17 @@
 """High-level alignment API of the port: batches, device phases, decode.
 
-The counterpart of ``aim_tpu/api.py`` for the kernel tiers the port has:
-sort long reads by estimated difficulty, pack the pairs, pick the tier for
-the batch's alphabet, upload each chunk, run the kernel, pull the records,
-decode them by their grammar (WFA and GenASM step records or packed runs)
-into scores and CIGARs with the native decoders, re-run the pairs a kernel
-flags on the wider bands of the retry ladder and then on the exact host
-oracle, emit the reference-format file.  The host runtime (parser, record
-decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``.
+The counterpart of ``aim_tpu/api.py``: sort long reads by estimated
+difficulty, pack the pairs, pick the tier for the batch's alphabet, upload
+each chunk, run the kernel (or the dense exact tier), pull the records,
+decode them by their grammar (WFA and GenASM step records, packed runs, or
+the dense tiers' direction codes and histories) into scores and CIGARs
+with the native decoders, re-run the pairs a tier flags on the wider bands
+of the retry ladder and then on the exact host oracle, emit the
+reference-format file.  GenASM configs no kernel admits run on the host
+tier: the oracle is their compute path.  The host runtime (parser, record
+decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``;
+``align_file`` can trace the align span (``profile_dir``) and measure its
+energy (``energy``: the GPU's NVML counter, the host's RAPL counters).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from aim_tpu_torch import energy as _energy
 from aim_tpu_torch import native
 from aim_tpu_torch.config import ALGO_GENASM, ALGO_NW, ALGO_SWG, ALGO_WFA, \
     AlignConfig
@@ -48,6 +53,11 @@ class AlignResult:
     # by plane count
     n_retry: int = 0
     retry_by_planes: dict = field(default_factory=dict)
+    # energy measured over align_file's align span (J), None where not
+    # measured: the GPU's NVML total-energy counter, the host's RAPL
+    # package + DRAM counters
+    gpu_energy_j: float | None = None
+    energy_measured_j: float | None = None
 
 
 def _sync(device: torch.device):
@@ -144,7 +154,6 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
 def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
                 device) -> AlignResult:
     device = torch.device(device)
-    kernels.forward_fn(cfg)  # an unported config raises before any work
     n = pats.shape[0]
     R = cfg.read_size
     max_ops = 2 * R
@@ -159,10 +168,23 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
 
     # 2-bit-pack the uploads when the batch alphabet allows it; then pick
     # the tier for it (aim_tpu/api.py:555-570): K1 and K2/K3 compare raw
-    # bytes too, K5 takes its byte layout, K4 needs the packed codes.
+    # bytes too, K5 takes its byte layout, K4 needs the packed codes, the
+    # dense tiers take raw bytes.
     up_pats, up_txts, packed = pack_seqs(pats, txts, plens, tlens, R)
     fwd = kernels.forward_fn(cfg, packed_ok=packed)
+    if fwd.records == kernels.HOST:
+        # the host tier (aim_tpu/api.py:572-581): the exact multi-threaded
+        # oracle is the compute path
+        t0 = time.perf_counter()
+        osc, oops, ob, oe = _oracle_align(pats, txts, plens, tlens, cfg)
+        res.t_kernel = time.perf_counter() - t0
+        scores[:] = osc
+        if cfg.backtrace:
+            ops[:], begin[:], end[:] = oops, ob, oe
+        return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
     bs = _plan_bs(cfg, n, device, packed_ok=packed)
+    if fwd.records in kernels.DENSE_RECORDS:
+        up_pats, up_txts, packed = pats, txts, False
     starts = list(range(0, n, bs))
     records = []
     for w0 in range(0, len(starts), WAVE):
@@ -183,16 +205,23 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         del uploads
 
         t2 = time.perf_counter()
-        records.extend(o.cpu().numpy() for o in outs)
+        records.extend({k: v.cpu().numpy() for k, v in o.items()}
+                       if isinstance(o, dict) else o.cpu().numpy()
+                       for o in outs)
         res.t_retrieve += time.perf_counter() - t2
         del outs
 
     smax = cfg.max_score
     retry_stages = _retry_stages(fwd)
     for lo, rec in zip(starts, records):
-        chunk = slice(lo, lo + rec.shape[0])
+        chunk = slice(lo, min(lo + bs, n))
         flagged = None
-        if fwd.records in (kernels.STEP_RECORDS, kernels.GENASM_RECORDS):
+        if fwd.records in kernels.DENSE_RECORDS:
+            _decode_dense(fwd.records, rec, cfg, chunk, pats, txts, plens,
+                          tlens, scores, ops, begin, end)
+            if "needs_fallback" in rec:
+                flagged = np.nonzero(rec["needs_fallback"])[0]
+        elif fwd.records in (kernels.STEP_RECORDS, kernels.GENASM_RECORDS):
             # WFA: row smax+3 holds the score; GenASM: the same grammar
             # with one level row a text position, the score in row R+3
             # (no fallback conditions)
@@ -235,6 +264,32 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         if cfg.backtrace:
             ops[sel], begin[sel], end[sel] = oops, ob, oe
     return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
+
+
+def _decode_dense(grammar, rec, cfg: AlignConfig, chunk, pats, txts, plens,
+                  tlens, scores, ops, begin, end):
+    """Scores and, with backtrace, CIGARs of a dense tier's chunk
+    (aim_tpu/api.py:730-747): WFA histories walked by
+    ``native.wfa_backtrace_batch``, NW/SWG direction codes by the native
+    walkers."""
+    scores[chunk] = rec["scores"]
+    if not cfg.backtrace:
+        return
+    if grammar == kernels.DENSE_WFA:
+        ph, pm = rec["packed_hist"], rec["packed_meta"]
+        K = 2 * cfg.max_score + 1
+        o, b, e = native.wfa_backtrace_batch(
+            ph[:, :, :K], ph[:, :, K:2 * K], ph[:, :, 2 * K:3 * K],
+            pm[:, :, 0].astype(np.int32), pm[:, :, 1].astype(np.int32),
+            pm[:, :, 2].astype(np.uint8), rec["scores"], pats[chunk],
+            txts[chunk], plens[chunk], tlens[chunk], mismatch=cfg.mismatch,
+            gap_o=cfg.gap_o, gap_e=cfg.gap_e, max_score=cfg.max_score)
+    else:
+        walker = (native.nw_traceback_bits if grammar == kernels.DENSE_NW
+                  else native.swg_traceback_bits)
+        o, b, e = walker(rec["bits"], plens[chunk], tlens[chunk],
+                         2 * cfg.read_size)
+    ops[chunk], begin[chunk], end[chunk] = o, b, e
 
 
 def _retry_stages(tier) -> tuple:
@@ -401,18 +456,49 @@ def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
                 f"retry_by_planes={stages}\n")
 
 
+def _profiled_align(profile_dir, pats, txts, plens, tlens, cfg, device):
+    """``align`` under torch.profiler (CPU activities, and CUDA ones on a
+    CUDA device), its trace written to ``profile_dir/trace.json`` as a
+    chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        res = align(pats, txts, plens, tlens, cfg, device)
+        _sync(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    return res
+
+
 def align_file(input_path: str, output_path: str, n_reads: int,
                cfg: AlignConfig, device="cuda", verbose=True,
-               device_log: str | None = None) -> AlignResult:
+               device_log: str | None = None, energy: bool = False,
+               profile_dir: str | None = None) -> AlignResult:
     """File-to-file pipeline (the reference host main, host.c:136).
     n_reads is the number of PAIRS requested; fewer are aligned if the
-    file is shorter."""
+    file is shorter.
+
+    profile_dir: a torch.profiler trace of the align span is written there
+    (``trace.json``, chrome format).  energy: the GPU's and the host's
+    energy over the align span are measured and printed (NVML's
+    total-energy counter, RAPL); what cannot be read is reported as not
+    measured, never estimated."""
     device = torch.device(device)
     t0 = time.perf_counter()
     pats, txts, plens, tlens = native.parse_pairs(input_path, n_reads,
                                                   cfg.read_size, threads=0)
     t_parse = time.perf_counter() - t0
-    res = align(pats, txts, plens, tlens, cfg, device)
+    meter = _energy.Meter(device) if energy else None
+    if profile_dir:
+        res = _profiled_align(profile_dir, pats, txts, plens, tlens, cfg,
+                              device)
+    else:
+        res = align(pats, txts, plens, tlens, cfg, device)
+    if meter is not None:
+        _sync(device)
+        res.gpu_energy_j, res.energy_measured_j = meter.stop()
     n = len(res.scores)
     native.emit_output(output_path, np.arange(n, dtype=np.int32), res.scores,
                        res.ops, res.begin, res.end, cfg.backtrace)
@@ -426,4 +512,13 @@ def align_file(input_path: str, output_path: str, n_reads: int,
         total = res.t_load + res.t_kernel + res.t_retrieve
         if total > 0:
             print(f"pairs/s (device phases): {n / total:.1f}")
+        if energy:
+            if res.gpu_energy_j is not None:
+                print(f"GPU Energy (J, measured, NVML total-energy counter "
+                      f"over the align span): {res.gpu_energy_j:f}")
+            else:
+                print(f"GPU Energy: not measured ({meter.gpu_missing})")
+            if res.energy_measured_j is not None:
+                print(f"Host Energy (J, measured, RAPL package+DRAM over "
+                      f"the align span): {res.energy_measured_j:f}")
     return res

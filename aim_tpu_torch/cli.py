@@ -7,10 +7,11 @@ The same flags, config derivation and output as ``aim_tpu.cli``; its
     python -m aim_tpu_torch.cli wfa -i pairs.txt -o out -l 100 -e 0.01 \\
         -n 40000 -b -r
 
-Ported so far: the short-read tiers of WFA / WFA-adaptive (kernel K1), NW
-(K2), SWG (K3) and GenASM (K4), the WFA long-read tier (K5, reads of
-1-16 kbp), and the streamed NW/SWG long-read tier (K6 forward, K7 walk)
-with the GenASM long tier on it, e.g.
+Every config runs.  The short-read tiers of WFA / WFA-adaptive (kernel
+K1), NW (K2), SWG (K3) and GenASM (K4), the WFA long-read tier (K5, reads
+of 1-16 kbp) and the streamed NW/SWG long-read tier (K6 forward, K7 walk)
+with the GenASM long tier on it serve what the reference's kernels serve,
+e.g.
 
     python -m aim_tpu_torch.cli nw -i pairs.txt -o out -l 100 -e 0.01 -b
     python -m aim_tpu_torch.cli genasm -i pairs.txt -o out -l 100 -e 0.01 -b
@@ -26,12 +27,20 @@ with the GenASM long tier on it, e.g.
 NW/SWG/GenASM-long pairs a kernel flags re-run on the wider bands of the
 retry ladder (AIM_TPU_RETRY_PLANES, default 2,4,8), then on the exact host
 oracle; AIM_TPU_ROUTE=0 keeps the streamed tier's primary band at one
-plane.  Other configs (WFA past the long-read tier's smax 1023, SWG int8
-cells the reference tier cannot prove, a negative match cost, reads past
-16352, GenASM past k = 508) exit 2 with the ROADMAP item that will port
-them.  ``-d`` caps the device count at 1 (multi-GPU is ROADMAP Queue 1
-item 9); ``--backend xla``, ``--profile`` and ``--energy`` are not ported
-yet.
+plane.  The configs no kernel admits (WFA past the long-read tier's smax
+1023, SWG int8 cells the band cannot prove, a negative match cost, reads
+past 16352) run on the dense exact tiers in plain PyTorch on the card, and
+GenASM past k = 508 on the host tier (the exact oracle); ``--backend xla``
+puts every config there:
+
+    python -m aim_tpu_torch.cli wfa -i pairs.txt -o out -l 100 -e 0.01 \
+        -b -r --backend xla
+
+``--profile DIR`` writes a torch.profiler chrome trace (CPU and CUDA
+activities) of the align span to DIR/trace.json; ``--energy`` prints the
+GPU energy of the align span from NVML's total-energy counter, and the
+host's from RAPL where the host has it.  ``-d`` caps the device count at 1
+(multi-GPU is ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -87,16 +96,17 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--batch-pairs", type=int, default=None,
                        help="pairs per device batch")
         p.add_argument("--energy", action="store_true",
-                       help="print an estimated kernel-phase energy (J); "
-                            "the reference's -DENERGY probe analogue "
-                            "(device-seconds x AIM_TPU_WATTS nominal)")
+                       help="print the GPU energy (J) measured over the "
+                            "align span by NVML's total-energy counter, and "
+                            "the host's by RAPL where present; the "
+                            "reference's -DENERGY probe analogue")
         p.add_argument("--device-log", type=str, default="",
                        help="per-device run log path (the reference's "
                             "dpu-out file; disabled when empty)")
         p.add_argument("--profile", type=str, default="",
-                       help="write a jax.profiler trace of the device "
-                            "phases to this directory (TensorBoard-"
-                            "loadable; SURVEY §5.1 probe analogue)")
+                       help="write a torch.profiler chrome trace (CPU and "
+                            "CUDA activities) of the align span to "
+                            "DIR/trace.json")
         p.add_argument("-q", "--quiet", action="store_true")
 
     nw = sub.add_parser("nw", help="Needleman-Wunsch edit distance")
@@ -176,17 +186,6 @@ def config_from_args(args) -> "AlignConfig":
     return cfg
 
 
-_NOT_PORTED_FLAGS = (
-    (lambda a: a.backend == "xla",
-     "--backend xla: not yet ported (ROADMAP Queue 1 item 5, exact torch "
-     "fallback tiers)"),
-    (lambda a: bool(a.profile),
-     "--profile: not yet ported (ROADMAP Queue 1 item 10, tooling)"),
-    (lambda a: a.energy,
-     "--energy: not yet ported (ROADMAP Queue 1 item 10, tooling)"),
-)
-
-
 def main(argv=None) -> int:
     ap = build_parser()
     ap.prog = "aim-tpu-torch"
@@ -212,17 +211,6 @@ def main(argv=None) -> int:
         print("Data doesn't fit in the WRAM (short-read tier); "
               "use --variant hbm for long reads")
         return -1
-    for rejected, msg in _NOT_PORTED_FLAGS:
-        if rejected(args):
-            print(f"aim-tpu-torch: {msg}", file=sys.stderr)
-            return 2
-    from aim_tpu_torch.ops import kernels
-    try:
-        kernels.forward_fn(cfg)
-    except NotImplementedError as e:
-        print(f"aim-tpu-torch: {e}", file=sys.stderr)
-        return 2
-
     import torch
     if not torch.cuda.is_available():
         print("aim-tpu-torch: CUDA is not available. The port runs on an "
@@ -243,7 +231,8 @@ def main(argv=None) -> int:
     from aim_tpu_torch.api import align_file
     align_file(args.input, args.output, args.number_reads, cfg,
                device=torch.device("cuda", 0), verbose=not args.quiet,
-               device_log=args.device_log or None)
+               device_log=args.device_log or None, energy=args.energy,
+               profile_dir=args.profile or None)
     return 0
 
 

@@ -144,6 +144,9 @@ def declare(lib):
     # swg, and the stream
     lib.aim_nwswg_long_walk.restype = ci
     lib.aim_nwswg_long_walk.argtypes = [vp] * 6 + [cl] + [ci] * 5 + [vp]
+    # probe index, pointers (a, b, out), reps, and the stream
+    lib.aim_probe.restype = ci
+    lib.aim_probe.argtypes = [ci, vp, vp, vp, ci, vp]
     lib.aim_cuda_error_string.restype = ctypes.c_char_p
     lib.aim_cuda_error_string.argtypes = [ci]
     return lib

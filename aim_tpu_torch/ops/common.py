@@ -1,9 +1,11 @@
-"""Shared host-side helpers: padding arithmetic, 2-bit packing, upload,
-and the checks every kernel wrapper makes on its pair tensors.
+"""Shared helpers: padding arithmetic, 2-bit packing, upload, the checks
+every kernel wrapper makes on its pair tensors, and the lane primitives of
+the dense exact tiers (``ops/nw_xla.py``, ``swg_xla.py``).
 
-``round_up`` and ``pack_seqs`` are copies of ``aim_tpu.ops.band.round_up``
-and ``aim_tpu.ops.common.pack_seqs`` (that package imports jax at module
-level, so the port carries its own copies; tests hold them equal).
+``round_up``, ``pack_seqs``, ``min_plus_scan``, ``shift_right_lanes`` and
+``gather_lane`` are copies of ``aim_tpu.ops.band.round_up`` and
+``aim_tpu.ops.common`` (that package imports jax at module level, so the
+port carries its own copies; tests hold them equal).
 """
 
 from __future__ import annotations
@@ -11,9 +13,48 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# The reference scan's fill for masked lanes (aim_tpu/ops/common.py:28).
+SCAN_BIG = 2 ** 24
+
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def min_plus_scan(z: torch.Tensor, slope: int) -> torch.Tensor:
+    """Min-plus prefix scan along the last axis,
+
+        out[v] = min_{j <= v} ( z[j] + (v - j) * slope ),
+
+    the closed form of the reference's deletion chain
+    ``cell[v] = min(indep[v], cell[v-1] + gap)``.  The reference runs it
+    as log2(width) masked shift+min steps whose masked lanes take 2**24;
+    that fill reaches every lane through lane 0's prefix, so its result is
+    ``min(cummin(z - ramp), 2**24) + ramp`` whenever the width is above
+    one, which this computes with one ``cummin``.  Integers: exact."""
+    w = z.shape[-1]
+    ramp = torch.arange(w, dtype=z.dtype, device=z.device) * slope
+    x = z - ramp
+    if w > 1:
+        x = torch.cummin(x, dim=-1).values.clamp_(max=SCAN_BIG)
+    return x + ramp
+
+
+def shift_right_lanes(x: torch.Tensor, fill) -> torch.Tensor:
+    """out[..., v] = x[..., v-1]; out[..., 0] = fill."""
+    out = torch.empty_like(x)
+    out[..., 1:] = x[..., :-1]
+    out[..., 0] = fill
+    return out
+
+
+def gather_lane(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-row lane gather of a 2-D x: out[n] = x[n, idx[n]], and 0 where
+    idx[n] lies outside the row (the reference's one-hot sum)."""
+    w = x.shape[1]
+    inside = (idx >= 0) & (idx < w)
+    g = x.gather(1, idx.clamp(0, w - 1).long()[:, None])[:, 0]
+    return torch.where(inside, g, torch.zeros_like(g))
 
 
 def pack_seqs(pats, txts, plens, tlens, read_size: int):

@@ -27,22 +27,42 @@ before the last line:
               data/sample-l100-e1-2K; `wfa -l 10000 -e 0.01 -b -r --variant
               hbm` on 8,192 generated pairs and `-b` on the first 1,024;
               the streamed tier `nw -l 4096 -e 0.01 -b --variant hbm` and
-              `nw` (score only) on 4,096 generated pairs, `swg ... -b` on
-              2,048 of them (also under AIM_TPU_ROUTE=0, where the primary
-              band is C = 63 and the retry ladder climbs), and `genasm -l
-              4096 -e 0.01 -b` on the 4,096; K2's retry ladder: `nw -l 100
-              -e 0.01 -b` and `nw` on 4,096 pairs generated at 10 % errors,
-              which K2 flags and K6/K7 re-run at two planes.  Every output
-              file must equal the oracle's byte for byte; every launch
-              counter is set to 0 just before each run and read just after,
-              and the run's own kernels must have launched and no other.  The 100 bp and WFA
-              runs must flag no pair, the ladder runs aside; the streamed
-              and ladder runs report the pairs the ladder certified at each
-              stage and the oracle re-ran.
+              `nw` (score only) on 1,024 generated pairs, `swg ... -b` on
+              512 of them (and on 3 x 256 under AIM_TPU_ROUTE=0, where the
+              primary band is C = 63 and the retry ladder climbs), and
+              `genasm -l 4096 -e 0.01 -b` on the 1,024; K2's retry ladder:
+              `nw -l 100 -e 0.01 -b` and `nw` on 4,096 pairs generated at
+              10 % errors, which K2 flags and K6/K7 re-run at two planes.
+              Every output file must equal the oracle's byte for byte;
+              every launch and dense-call counter is set to 0 just before
+              each run and read just after, and the run's own kernels must
+              have launched and no other.  The 100 bp and WFA runs must
+              flag no pair, the ladder runs aside; the streamed and ladder
+              runs report the pairs the ladder certified at each stage and
+              the oracle re-ran.
   4. timing   each kernel vs its plain version on one chunk of its
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
               pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
               records compared once more at this, the CLI's launch shape.
+  5. probes   the tooling path: `aim_tpu_torch.tools.microbench` drives the
+              13 CUDA probes of csrc/probes.cu (M1's twelve, M2) with their
+              launch counters at 0; each probe's output equal to its plain
+              version at 64 and 512 reps; per-rep ns, bound, plain time.
+  6. dense    the exact tiers: `wfa -b -r`, `nw -b`, `swg -b` with
+              `--backend xla` on the sample; configs no kernel admits on the
+              default backend: `swg -m -1 -b` on the sample, `wfa -l 4096
+              -e 0.05 -b --variant hbm` (MAX_SCORE 1024) and `genasm -l 2000
+              -e 0.3 -b` (k 1200, the host tier) on 48 generated pairs, `nw
+              -l 20000 -e 0.01 -b --variant hbm` on 4 (the NW oracle wraps its
+              int16 cells there; the dense tier flags exactly those pairs
+              to it).  Each output `cmp`-equal to the oracle's; no hand
+              kernel launched, the dense tier's call counter (none for the
+              host tier) above 0.
+  7. fuzz     `aim_tpu_torch.tools.fuzz_kernels`: all 31 rows at seed 101
+              on the card, each row's tier printed, 0 bad pairs.
+  8. tools    `--profile` on `wfa -b -r` on the sample leaves a chrome
+              trace with kernel events; `--energy` on the 1M-pair main
+              path prints the GPU joules NVML measured, above 0.
 
 The last two lines are the kernel table (time, plain time, the bound the
 card sets for the same work and what sets it, launches on the main path)
@@ -71,15 +91,24 @@ LONG_PAIRS = 8_192       # the generated 10 kbp run
 ORACLE_1T_PAIRS = 200_000
 LONG_TIMING_PAIRS = 1_024   # the 10 kbp timing chunk (the plain version
                             # takes about half a minute on it)
-STREAM_PAIRS = 4_096        # the generated 4 kbp streamed-tier runs
-STREAM_SWG_PAIRS = 2_048
+# the generated 4 kbp streamed-tier runs: the host oracle's re-run of the
+# ~40 % aliasing pairs is most of their time, so they are cut to keep the
+# whole smoke near half its time limit
+STREAM_PAIRS = 1_024
+STREAM_SWG_PAIRS = 512
+STREAM_TIMING_PAIRS = 4_096  # K6/K7's timing chunk
 # the ladder's run: this many pairs at each error rate, one file
 LADDER_ERRORS = (0.01, 0.025, 0.035)
-LADDER_PAIRS_EACH = 640
+LADDER_PAIRS_EACH = 256
 # K2's ladder at 100 bp: pairs at 10 % errors run at -e 0.01, so that K2
 # flags nearly all of them and K6/K7 re-run them at two planes
 LADDER_100_PAIRS = 4_096
 LADDER_100_LABEL = "datagen-100bp-e10"
+# the main path's generated input, and the oracle's output of its first run
+# (`wfa -b -r`), which the tools phase compares against once more
+MAIN_INPUT = "pairs.txt"
+MAIN_ORACLE = "oracle0"
+FUZZ_SEED = 101
 # The card's peaks for the bounds (H100 SXM data sheet and white paper, at
 # the 700 W limit): HBM3 bytes a second; int32 operations a second (132 SMs
 # x 64 INT32 lanes x 1.98 GHz boost clock).
@@ -756,28 +785,35 @@ def read_device_log(path):
 
 
 def launch_counters():
-    """{kernel: (module, counter attribute)} of every kernel."""
-    from aim_tpu_torch.ops import genasm, nw, nwswg_long, swg, wfa2, wfa_long
+    """{kernel: (module, counter attribute)} of every kernel of the CLI's
+    tiers, and the call counters of the dense tiers (which launch no kernel
+    of their own)."""
+    from aim_tpu_torch.ops import (genasm, nw, nw_xla, nwswg_long, swg,
+                                   swg_xla, wfa2, wfa_long, wfa_xla)
     return {"wfa": (wfa2, "launch_count"), "nw": (nw, "launch_count"),
             "swg": (swg, "launch_count"),
             "genasm": (genasm, "launch_count"),
             "wfa_long": (wfa_long, "launch_count"),
             "nwswg_long_fwd": (nwswg_long, "launch_count"),
-            "nwswg_long_walk": (nwswg_long, "walk_launch_count")}
+            "nwswg_long_walk": (nwswg_long, "walk_launch_count"),
+            "dense_nw": (nw_xla, "call_count"),
+            "dense_swg": (swg_xla, "call_count"),
+            "dense_wfa": (wfa_xla, "call_count")}
 
 
-def run_cli(argv, out, log, env=None):
+def run_cli(argv, out, log, env=None, quiet=True):
     """One CLI run with every launch counter set to 0 just before it;
     returns (wall s, {kernel: launches}, device log)."""
     from aim_tpu_torch import cli
     mods = launch_counters()
     saved = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
-    for mod, _ in mods.values():
-        mod.reset_launch_count()
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
     try:
         t0 = time.perf_counter()
-        rc = cli.main(argv + ["-o", out, "--device-log", log, "-q"])
+        rc = cli.main(argv + ["-o", out, "--device-log", log]
+                      + (["-q"] if quiet else []))
         wall = time.perf_counter() - t0
         launches = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
     finally:
@@ -854,116 +890,116 @@ def ladder_stages(log):
             (item.split(":") for item in log["retry_by_planes"].split(","))}
 
 
-def phase_main(smi):
-    """Every CLI run; returns {kernel: launches in its canonical run} (the
-    1M-pair `-b` run at 100 bp, the 8,192-pair `-b -r` run at 10 kbp, the
-    4,096-pair `nw -b` run at 4 kbp)."""
+def phase_main(smi, tmp):
+    """Every CLI run, its files in ``tmp``; returns {kernel: launches in its
+    canonical run} (the 1M-pair `-b` run at 100 bp, the 8,192-pair `-b -r`
+    run at 10 kbp, the `nw -b` run at 4 kbp).  The main path's input and
+    its oracle output stay in ``tmp`` as MAIN_INPUT and MAIN_ORACLE."""
     from aim_tpu_torch import datagen
     from aim_tpu_torch.cli import build_parser, config_from_args
     gpu = torch.cuda.get_device_name(0)
     main_launches = {}
-    with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
-        inp = os.path.join(tmp, "pairs.txt")
-        t0 = time.perf_counter()
-        datagen.write_pair_file(inp, MAIN_PAIRS, 100, 0.01, seed=SEED)
-        t_gen = time.perf_counter() - t0
-        inp_long = os.path.join(tmp, "pairs_10k.txt")
-        t0 = time.perf_counter()
-        datagen.write_pair_file(inp_long, LONG_PAIRS, 10000, 0.01, seed=SEED)
-        t_gen_long = time.perf_counter() - t0
-        inp_4k = {"4k": os.path.join(tmp, "pairs_4k.txt"),
-                  "4k_mixed": os.path.join(tmp, "pairs_4k_mixed.txt")}
-        t0 = time.perf_counter()
-        datagen.write_pair_file(inp_4k["4k"], STREAM_PAIRS, 4096, 0.01,
-                                seed=SEED)
-        t_gen_4k = time.perf_counter() - t0
-        inp_e10 = os.path.join(tmp, "pairs_e10.txt")
-        datagen.write_pair_file(inp_e10, LADDER_100_PAIRS, 100, 0.1,
-                                seed=SEED + 6)
-        half = os.path.join(tmp, "half.txt")
-        with open(inp_4k["4k_mixed"], "wb") as out:
-            for err in LADDER_ERRORS:
-                datagen.write_pair_file(half, LADDER_PAIRS_EACH, 4096, err,
-                                        seed=SEED + 5)
-                with open(half, "rb") as f:
-                    out.write(f.read())
-        hundred = ["-l", "100", "-e", "0.01"]
-        long_ = ["-l", "10000", "-e", "0.01", "--variant", "hbm"]
-        runs = [(inp, MAIN_PAIRS, a, hundred + f, (a,), "datagen", t_gen, {})
-                for a, f in MAIN_RUNS] + \
-            [(SAMPLE, 1000, a, hundred + f, (a,), "sample-l100-e1-2K", None,
-              {}) for a, f in SAMPLE_RUNS] + \
-            [(inp_long, n, "wfa", long_ + f, ("wfa_long",), "datagen-10kbp",
-              t_gen_long if n == LONG_PAIRS else None, {})
-             for n, f in LONG_RUNS] + \
-            [(inp_4k[src], n, a, ["-l", "4096"] + f,
-              STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1],
-              "datagen-4kbp", t_gen_4k if src == "4k" else None, env)
-             for a, f, src, n, env in STREAM_RUNS] + \
-            [(inp_e10, LADDER_100_PAIRS, "nw", hundred + f,
-              ("nw",) + (STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1]),
-              LADDER_100_LABEL, None, {}) for f in (["-b"], [])]
-        # t_src: the generation time, on the runs over a whole generated
-        # file; their `-b` runs get the one-thread oracle rate
-        for i, (src, n, algo, flags, kerns, label, t_src, env) in \
-                enumerate(runs):
-            argv = [algo, "-i", src, "-n", str(n)] + flags
-            cfg = config_from_args(build_parser().parse_args(argv))
-            out = os.path.join(tmp, f"port{i}")
-            ref = os.path.join(tmp, f"oracle{i}")
-            wall, launches, log = run_cli(argv, out, os.path.join(tmp, "log"),
-                                          env)
-            n_done, t_mt, t_file, batch = oracle_file(ref, src, n, cfg)
-            same = filecmp.cmp(out, ref, shallow=False)
-            kern = kerns[0]
-            stages = ladder_stages(log)
-            row = {"phase": "main", "input": label, "argv": " ".join(argv),
-                   "env": env, "kernel": kern, "pairs": n_done,
-                   "launches": launches[kern], "launches_all": launches,
-                   "fallback": int(log["fallback"]),
-                   "retry": int(log["retry"]),
-                   "retry_stages": stages,
-                   "t_load_s": float(log["load_s"]),
-                   "t_kernel_s": float(log["kernel_s"]),
-                   "t_retrieve_s": float(log["retrieve_s"]),
-                   "e2e_s": wall, "e2e_pairs_s": n_done / wall,
-                   "device_phase_pairs_s": n_done / (
-                       float(log["load_s"]) + float(log["kernel_s"])
-                       + float(log["retrieve_s"])),
-                   "oracle_mt_s": t_mt,
-                   "oracle_mt_pairs_s": n_done / t_mt,
-                   "oracle_mt_file_pairs_s": n_done / t_file,
-                   "cmp_equal": same, "gpu": gpu, "nvidia_smi": smi}
-            if t_src is not None and "-b" in flags:
-                # one thread on the first ORACLE_1T_PAIRS pairs (a rate per
-                # pair; NW and SWG take ~26 s a million on one core), on
-                # 64 pairs at 4 kbp
-                k1 = ORACLE_1T_PAIRS if label != "datagen-4kbp" else 64
-                p, t, pl, tl = (a[:k1] for a in batch)
-                t1 = time.perf_counter()
-                oracle_align(p, t, pl, tl, cfg, threads=1)
-                row["oracle_1t_pairs_s"] = len(pl) / (time.perf_counter()
-                                                      - t1)
-                row["oracle_1t_pairs"] = len(pl)
-                row["host_cpu_cores"] = os.cpu_count()
-                row["gen_s"] = t_src
-                for k in kerns:
-                    main_launches.setdefault(k, launches[k])
-            emit(row)
-            if not same:
-                fail(f"{argv}: output differs from the oracle")
-            others = sum(v for k, v in launches.items() if k not in kerns)
-            flag_ok = int(log["fallback"]) == 0 or label in (
-                "datagen-4kbp", LADDER_100_LABEL)
-            if not flag_ok or min(launches[k] for k in kerns) <= 0 \
-                    or others or n_done != n:
-                fail(f"{argv}: fallback={log['fallback']} "
-                     f"launches={launches} pairs={n_done}")
-            if env.get("AIM_TPU_ROUTE") == "0" and set(stages) != {2, 4, 8}:
-                fail(f"{argv}: expected ladder stages 2, 4 and 8: {stages}")
-            if label == LADDER_100_LABEL and not stages.get(2):
-                fail(f"{argv}: expected pairs certified at two planes: "
-                     f"{stages}")
+    inp = os.path.join(tmp, MAIN_INPUT)
+    t0 = time.perf_counter()
+    datagen.write_pair_file(inp, MAIN_PAIRS, 100, 0.01, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    inp_long = os.path.join(tmp, "pairs_10k.txt")
+    t0 = time.perf_counter()
+    datagen.write_pair_file(inp_long, LONG_PAIRS, 10000, 0.01, seed=SEED)
+    t_gen_long = time.perf_counter() - t0
+    inp_4k = {"4k": os.path.join(tmp, "pairs_4k.txt"),
+              "4k_mixed": os.path.join(tmp, "pairs_4k_mixed.txt")}
+    t0 = time.perf_counter()
+    datagen.write_pair_file(inp_4k["4k"], STREAM_PAIRS, 4096, 0.01,
+                            seed=SEED)
+    t_gen_4k = time.perf_counter() - t0
+    inp_e10 = os.path.join(tmp, "pairs_e10.txt")
+    datagen.write_pair_file(inp_e10, LADDER_100_PAIRS, 100, 0.1,
+                            seed=SEED + 6)
+    half = os.path.join(tmp, "half.txt")
+    with open(inp_4k["4k_mixed"], "wb") as out:
+        for err in LADDER_ERRORS:
+            datagen.write_pair_file(half, LADDER_PAIRS_EACH, 4096, err,
+                                    seed=SEED + 5)
+            with open(half, "rb") as f:
+                out.write(f.read())
+    hundred = ["-l", "100", "-e", "0.01"]
+    long_ = ["-l", "10000", "-e", "0.01", "--variant", "hbm"]
+    runs = [(inp, MAIN_PAIRS, a, hundred + f, (a,), "datagen", t_gen, {})
+            for a, f in MAIN_RUNS] + \
+        [(SAMPLE, 1000, a, hundred + f, (a,), "sample-l100-e1-2K", None,
+          {}) for a, f in SAMPLE_RUNS] + \
+        [(inp_long, n, "wfa", long_ + f, ("wfa_long",), "datagen-10kbp",
+          t_gen_long if n == LONG_PAIRS else None, {})
+         for n, f in LONG_RUNS] + \
+        [(inp_4k[src], n, a, ["-l", "4096"] + f,
+          STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1],
+          "datagen-4kbp", t_gen_4k if src == "4k" else None, env)
+         for a, f, src, n, env in STREAM_RUNS] + \
+        [(inp_e10, LADDER_100_PAIRS, "nw", hundred + f,
+          ("nw",) + (STREAM_KERNELS if "-b" in f else STREAM_KERNELS[:1]),
+          LADDER_100_LABEL, None, {}) for f in (["-b"], [])]
+    # t_src: the generation time, on the runs over a whole generated
+    # file; their `-b` runs get the one-thread oracle rate
+    for i, (src, n, algo, flags, kerns, label, t_src, env) in \
+            enumerate(runs):
+        argv = [algo, "-i", src, "-n", str(n)] + flags
+        cfg = config_from_args(build_parser().parse_args(argv))
+        out = os.path.join(tmp, f"port{i}")
+        ref = os.path.join(tmp, f"oracle{i}")
+        wall, launches, log = run_cli(argv, out, os.path.join(tmp, "log"),
+                                      env)
+        n_done, t_mt, t_file, batch = oracle_file(ref, src, n, cfg)
+        same = filecmp.cmp(out, ref, shallow=False)
+        kern = kerns[0]
+        stages = ladder_stages(log)
+        row = {"phase": "main", "input": label, "argv": " ".join(argv),
+               "env": env, "kernel": kern, "pairs": n_done,
+               "launches": launches[kern], "launches_all": launches,
+               "fallback": int(log["fallback"]),
+               "retry": int(log["retry"]),
+               "retry_stages": stages,
+               "t_load_s": float(log["load_s"]),
+               "t_kernel_s": float(log["kernel_s"]),
+               "t_retrieve_s": float(log["retrieve_s"]),
+               "e2e_s": wall, "e2e_pairs_s": n_done / wall,
+               "device_phase_pairs_s": n_done / (
+                   float(log["load_s"]) + float(log["kernel_s"])
+                   + float(log["retrieve_s"])),
+               "oracle_mt_s": t_mt,
+               "oracle_mt_pairs_s": n_done / t_mt,
+               "oracle_mt_file_pairs_s": n_done / t_file,
+               "cmp_equal": same, "gpu": gpu, "nvidia_smi": smi}
+        if t_src is not None and "-b" in flags:
+            # one thread on the first ORACLE_1T_PAIRS pairs (a rate per
+            # pair; NW and SWG take ~26 s a million on one core), on
+            # 64 pairs at 4 kbp
+            k1 = ORACLE_1T_PAIRS if label != "datagen-4kbp" else 64
+            p, t, pl, tl = (a[:k1] for a in batch)
+            t1 = time.perf_counter()
+            oracle_align(p, t, pl, tl, cfg, threads=1)
+            row["oracle_1t_pairs_s"] = len(pl) / (time.perf_counter()
+                                                  - t1)
+            row["oracle_1t_pairs"] = len(pl)
+            row["host_cpu_cores"] = os.cpu_count()
+            row["gen_s"] = t_src
+            for k in kerns:
+                main_launches.setdefault(k, launches[k])
+        emit(row)
+        if not same:
+            fail(f"{argv}: output differs from the oracle")
+        others = sum(v for k, v in launches.items() if k not in kerns)
+        flag_ok = int(log["fallback"]) == 0 or label in (
+            "datagen-4kbp", LADDER_100_LABEL)
+        if not flag_ok or min(launches[k] for k in kerns) <= 0 \
+                or others or n_done != n:
+            fail(f"{argv}: fallback={log['fallback']} "
+                 f"launches={launches} pairs={n_done}")
+        if env.get("AIM_TPU_ROUTE") == "0" and set(stages) != {2, 4, 8}:
+            fail(f"{argv}: expected ladder stages 2, 4 and 8: {stages}")
+        if label == LADDER_100_LABEL and not stages.get(2):
+            fail(f"{argv}: expected pairs certified at two planes: "
+                 f"{stages}")
     return main_launches
 
 
@@ -1019,7 +1055,7 @@ def chunk_bound(name, cfg, args, rec):
 def phase_timing(reps=20):
     """Each kernel against its plain version on one chunk of its canonical
     config: 16384 pairs at 100 bp, LONG_TIMING_PAIRS at 10 kbp,
-    STREAM_PAIRS at 4 kbp for K6 and K7; returns {kernel: (kernel ms,
+    STREAM_TIMING_PAIRS at 4 kbp for K6 and K7; returns {kernel: (kernel ms,
     plain ms, err, bound ms, bound_by)}."""
     from aim_tpu_torch import datagen
     from aim_tpu_torch.config import derive_config
@@ -1092,7 +1128,7 @@ def phase_timing(reps=20):
     # `nw -l 4096 -e 0.01 -b --variant hbm`, at its routed plane count
     cfg = cfg_of("nw", 4096, variant="hbm")
     planes = nwswg_long.route_planes(cfg)
-    p, t, pl, tl = datagen.generate_pairs(STREAM_PAIRS, 4096, 0.01,
+    p, t, pl, tl = datagen.generate_pairs(STREAM_TIMING_PAIRS, 4096, 0.01,
                                           read_size=cfg.read_size,
                                           seed=SEED + 1)
     pp, pt, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
@@ -1123,9 +1159,190 @@ def phase_timing(reps=20):
                                      ("nwswg_long_walk", k7_ms, p7_ms, e7,
                                       rec)):
         bnd = chunk_bound(name, cfg, args, r)
-        report(name, cfg, 4096, flags, STREAM_PAIRS, k_ms, p_ms, 5, err, bnd)
+        report(name, cfg, 4096, flags, STREAM_TIMING_PAIRS, k_ms, p_ms, 5,
+               err, bnd)
         out[name] = (k_ms, p_ms, err) + bnd[:2]
     return out
+
+
+def phase_probes(smi):
+    """The tooling path of M1 and M2: `aim_tpu_torch.tools.microbench`
+    drives every probe with its launch counter at 0 (it holds each byte-equal
+    to its plain version at both rep counts, then times it).  Returns
+    {probe: its row}."""
+    from aim_tpu_torch.ops import probes
+    from aim_tpu_torch.tools import microbench
+    gpu = torch.cuda.get_device_name(0)
+    probes.reset_launch_count()
+    rows = microbench.run(device=DEVICE, out=lambda line: print(
+        line, flush=True))
+    launches = dict(probes.launch_counts)
+    out = {}
+    for m in rows:
+        name = m["probe"]
+        args = probes.inputs(name, DEVICE)
+        nbytes = sum(a.numel() * a.element_size() for a in args) + \
+            probes.elements(name) * args[0].element_size()
+        ops = probes.elements(name) * probes.PROBES[name].ops_per_rep * \
+            microbench.REPS_HI
+        b_ms, b_by = bound_ms(nbytes, ops)
+        m.update(phase="probes", launches=launches[name], bound_ms=b_ms,
+                 bound_by=b_by, gpu=gpu, nvidia_smi=smi)
+        emit(m)
+        if m["max_abs_err"] or launches[name] <= 0:
+            fail(f"probe {name}: max_abs_err={m['max_abs_err']} "
+                 f"launches={launches[name]}")
+        out[name] = m
+    if len(out) != len(probes.PROBES):
+        fail(f"the microbench drove {len(out)} probes")
+    return out
+
+
+def dense_runs(tmp):
+    """(label, input, pairs, argv tail, tier) of the exact-tier CLI runs:
+    `--backend xla` on the sample, then configs no kernel admits."""
+    from aim_tpu_torch import datagen
+    gen = {}
+    for key, n, length, err in (("4k_e5", 48, 4096, 0.05),
+                                ("2k_e30", 48, 2000, 0.3),
+                                ("20k", 4, 20000, 0.01)):
+        gen[key] = os.path.join(tmp, f"dense_{key}.txt")
+        datagen.write_pair_file(gen[key], n, length, err, seed=SEED + 7)
+    hundred = ["-l", "100", "-e", "0.01"]
+    xla = ["--backend", "xla"]
+    return [
+        ("sample-l100-e1-2K", SAMPLE, 1000,
+         ["wfa"] + hundred + ["-b", "-r"] + xla, "dense_wfa"),
+        ("sample-l100-e1-2K", SAMPLE, 1000, ["nw"] + hundred + ["-b"] + xla,
+         "dense_nw"),
+        ("sample-l100-e1-2K", SAMPLE, 1000, ["swg"] + hundred + ["-b"] + xla,
+         "dense_swg"),
+        # a negative match cost: no kernel admits it
+        ("sample-l100-e1-2K", SAMPLE, 1000,
+         ["swg"] + hundred + ["-m", "-1", "-b"], "dense_swg"),
+        # MAX_SCORE 1024, one past K5
+        ("datagen-4kbp-e5", gen["4k_e5"], 48,
+         ["wfa", "-l", "4096", "-e", "0.05", "-b", "--variant", "hbm"],
+         "dense_wfa"),
+        # k 1200, past the GenASM long tier's 508: the host tier
+        ("datagen-2kbp-e30", gen["2k_e30"], 48,
+         ["genasm", "-l", "2000", "-e", "0.3", "-b"], "host"),
+        # READ_SIZE 20208, past the streamed tier's 16352
+        ("datagen-20kbp", gen["20k"], 4,
+         ["nw", "-l", "20000", "-e", "0.01", "-b", "--variant", "hbm"],
+         "dense_nw"),
+    ]
+
+
+def phase_dense(smi, tmp):
+    """The exact tiers through the CLI: each output `cmp`-equal to the
+    oracle's, no hand kernel launched, the dense tier called (the host tier
+    runs no device work)."""
+    from aim_tpu_torch.cli import build_parser, config_from_args
+    from aim_tpu_torch.ops import kernels
+    gpu = torch.cuda.get_device_name(0)
+    for i, (label, src, n, tail, tier) in enumerate(dense_runs(tmp)):
+        argv = tail[:1] + ["-i", src, "-n", str(n)] + tail[1:]
+        cfg = config_from_args(build_parser().parse_args(argv))
+        name = kernels.forward_fn(cfg).name
+        if name != ("host" if tier == "host" else "dense"):
+            fail(f"{argv}: served by {name}, not the exact tier")
+        out = os.path.join(tmp, f"dense_port{i}")
+        ref = os.path.join(tmp, f"dense_oracle{i}")
+        wall, launches, log = run_cli(argv, out, os.path.join(tmp, "log"))
+        n_done, t_mt, t_file, _ = oracle_file(ref, src, n, cfg)
+        same = filecmp.cmp(out, ref, shallow=False)
+        others = {k: v for k, v in launches.items() if k != tier and v}
+        row = {"phase": "dense", "input": label, "argv": " ".join(argv),
+               "tier": tier, "read_size": cfg.read_size,
+               "max_score": cfg.max_score, "pairs": n_done,
+               "calls": launches.get(tier, 0), "launches_all": launches,
+               "fallback": int(log["fallback"]),
+               "t_load_s": float(log["load_s"]),
+               "t_kernel_s": float(log["kernel_s"]),
+               "t_retrieve_s": float(log["retrieve_s"]),
+               "e2e_s": wall, "e2e_pairs_s": n_done / wall,
+               "oracle_mt_s": t_mt, "oracle_mt_file_pairs_s": n_done / t_file,
+               "cmp_equal": same, "gpu": gpu, "nvidia_smi": smi}
+        emit(row)
+        if not same or others or n_done != n or \
+                (tier != "host" and launches[tier] <= 0):
+            fail(f"{argv}: cmp_equal={same} launches={launches} "
+                 f"pairs={n_done}")
+        # the NW oracle's int16 cells wrap past (R+1) x gap 32767: the dense
+        # tier flags those pairs (all of them at 20 kbp) to it
+        if label == "datagen-20kbp" and int(log["fallback"]) != n:
+            fail(f"{argv}: expected every pair flagged to the oracle")
+
+
+def phase_fuzz():
+    """tools.fuzz_kernels on the card: every row of CONFIGS at FUZZ_SEED,
+    0 bad pairs."""
+    from aim_tpu_torch.tools import fuzz_kernels
+    t0 = time.perf_counter()
+    total, reports = fuzz_kernels.fuzz([FUZZ_SEED], device=DEVICE,
+                                       out=lambda line: None)
+    for rep in reports:
+        emit({"phase": "fuzz", **rep})
+    emit({"phase": "fuzz", "rows": len(reports), "total_bad": total,
+          "seconds": time.perf_counter() - t0})
+    if total or len(reports) != len(fuzz_kernels.CONFIGS):
+        fail(f"fuzz: TOTAL BAD {total} over {len(reports)} rows")
+
+
+def phase_tools(smi, tmp):
+    """`--profile` on the main path's `wfa -b -r` over the sample: a chrome
+    trace with kernel events; `--energy` on the 1M-pair main path: the GPU
+    joules NVML measured, above 0.  Both outputs `cmp`-equal to the
+    oracle's."""
+    import contextlib
+    import io
+    gpu = torch.cuda.get_device_name(0)
+    prof = os.path.join(tmp, "profile")
+    hundred = ["-l", "100", "-e", "0.01", "-b", "-r"]
+    argv = ["wfa", "-i", SAMPLE, "-n", "1000"] + hundred + ["--profile", prof]
+    out, ref = os.path.join(tmp, "tools_port"), os.path.join(tmp,
+                                                             "tools_oracle")
+    from aim_tpu_torch.cli import build_parser, config_from_args
+    cfg = config_from_args(build_parser().parse_args(argv))
+    _, launches, _ = run_cli(argv, out, os.path.join(tmp, "log"))
+    oracle_file(ref, SAMPLE, 1000, cfg)
+    trace = os.path.join(prof, "trace.json")
+    events = json.load(open(trace))["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "wfa2" in e.get("name", "")]
+    row = {"phase": "tools", "tool": "profile", "argv": " ".join(argv),
+           "trace_bytes": os.path.getsize(trace), "events": len(events),
+           "kernel_events": len(kern), "k1_events": len(k1),
+           "k1_launches": launches["wfa"],
+           "cmp_equal": filecmp.cmp(out, ref, shallow=False), "gpu": gpu}
+    emit(row)
+    if not (row["cmp_equal"] and k1 and launches["wfa"] > 0):
+        fail(f"--profile: {row}")
+    main = os.path.join(tmp, MAIN_INPUT)
+    argv = ["wfa", "-i", main, "-n", str(MAIN_PAIRS)] + hundred + \
+        ["--energy"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        wall, launches, _ = run_cli(argv, out, os.path.join(tmp, "log"),
+                                    quiet=False)
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("GPU Energy")]
+    joules = None
+    if lines and "not measured" not in lines[0]:
+        joules = float(lines[0].rsplit(":", 1)[1])
+    row = {"phase": "tools", "tool": "energy", "argv": " ".join(argv),
+           "gpu_energy_line": lines[0] if lines else None,
+           "gpu_joules": joules,
+           "host_energy_line": next((ln for ln in text.splitlines()
+                                     if ln.startswith("Host Energy")), None),
+           "e2e_s": wall, "launches": launches["wfa"],
+           "cmp_equal": filecmp.cmp(out, os.path.join(tmp, MAIN_ORACLE),
+                                    shallow=False),
+           "gpu": gpu, "nvidia_smi": smi}
+    emit(row)
+    if not (row["cmp_equal"] and joules is not None and joules > 0):
+        fail(f"--energy: {row}")
 
 
 KERNELS = [("wfa2", "wfa", "aim_tpu_torch/csrc/wfa2.cu",
@@ -1153,8 +1370,13 @@ def main() -> int:
     max_err["genasm"] = phase_genasm_kernel()
     max_err["wfa_long"] = phase_long_kernel()
     max_err.update(phase_stream_kernel())
-    launches = phase_main(smi)
-    timing = phase_timing()
+    with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
+        launches = phase_main(smi, tmp)
+        timing = phase_timing()
+        probe_rows = phase_probes(smi)
+        phase_dense(smi, tmp)
+        phase_fuzz()
+        phase_tools(smi, tmp)
     table = []
     for name, key, src, replaces in KERNELS:
         k_ms, p_ms, err, b_ms, b_by = timing[key]
@@ -1164,6 +1386,21 @@ def main() -> int:
                       "max_abs_err": max(max_err[key], err),
                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
+    from aim_tpu_torch.ops import probes
+    from aim_tpu_torch.tools.microbench import REPS_HI
+    for name, m in probe_rows.items():
+        # times of one launch at REPS_HI reps; launches from the microbench
+        # run (the tooling path); no PyTorch call computes a probe's chain
+        table.append({"name": f"probe_{name}", "route": "cuda",
+                      "source": "aim_tpu_torch/csrc/probes.cu",
+                      "replaces": "tools/microbench_mosaic.py:"
+                                  f"{probes.PROBES[name].tpu_line}",
+                      "launches": m["launches"],
+                      "max_abs_err": m["max_abs_err"],
+                      "ms": m[f"ms_{REPS_HI}"],
+                      "plain_ms": m[f"plain_ms_{REPS_HI}"],
+                      "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                      "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)
     # the port runs on one device (its CLI caps -d at 1)

@@ -238,38 +238,41 @@ def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("argv,needle", [
-    # NW past the streamed tier's 16352 (id kept from when the NW
-    # short-read tier itself was unported)
+@pytest.mark.parametrize("argv,tier", [
+    # NW past the streamed tier's 16352: the dense tier (id kept from when
+    # the NW short-read tier itself was unported)
     pytest.param(["nw", "-l", "20000", "-e", "0.01", "--variant", "hbm"],
-                 "ROADMAP Queue 1 item 5",
-                 id="argv0-ROADMAP Queue 1 item 3"),
-    # GenASM past the long tier's k <= 508: the exact host tier (id kept
-    # from when the GenASM short-read tier itself was unported)
-    pytest.param(["genasm", "-l", "2000", "-e", "0.3"],
-                 "ROADMAP Queue 1 item 5",
+                 "dense", id="argv0-ROADMAP Queue 1 item 3"),
+    # GenASM past the long tier's k <= 508: the host tier (id kept from when
+    # the GenASM short-read tier itself was unported)
+    pytest.param(["genasm", "-l", "2000", "-e", "0.3"], "host",
                  id="argv1-ROADMAP Queue 1 item 4"),
-    # WFA past the long-read tier's smax 1023: the exact XLA tier (id kept
-    # from when the long-read tier itself was unported)
+    # WFA past the long-read tier's smax 1023: the dense tier (id kept from
+    # when the long-read tier itself was unported)
     pytest.param(["wfa", "-l", "10000", "-e", "0.021", "--variant", "hbm"],
-                 "ROADMAP Queue 1 item 5",
-                 id="argv2-ROADMAP Queue 1 item 6"),
-    (["wfa", "-l", "100", "-e", "0.01", "--backend", "xla"],
-     "ROADMAP Queue 1 item 5"),
-    (["wfa", "-l", "100", "-e", "0.01", "--energy"],
-     "ROADMAP Queue 1 item 10"),
-    (["wfa", "-l", "100", "-e", "0.01", "--profile", "p"],
-     "ROADMAP Queue 1 item 10"),
-    # a negative match cost voids K3's band argument: the exact XLA tier
-    (["swg", "-l", "100", "-e", "0.01", "-m", "-1"],
-     "ROADMAP Queue 1 item 5"),
+                 "dense", id="argv2-ROADMAP Queue 1 item 6"),
+    pytest.param(["wfa", "-l", "100", "-e", "0.01", "--backend", "xla"],
+                 "dense", id="argv3-ROADMAP Queue 1 item 5"),
+    pytest.param(["wfa", "-l", "100", "-e", "0.01", "--energy"], "K1",
+                 id="argv4-ROADMAP Queue 1 item 10"),
+    pytest.param(["wfa", "-l", "100", "-e", "0.01", "--profile", "p"], "K1",
+                 id="argv5-ROADMAP Queue 1 item 10"),
+    # a negative match cost voids K3's band argument: the dense tier
+    pytest.param(["swg", "-l", "100", "-e", "0.01", "-m", "-1"], "dense",
+                 id="argv6-ROADMAP Queue 1 item 5"),
 ])
-def test_cli_rejects_unported(tmp_path, capsys, argv, needle):
-    rc = tcli.main(argv[:1] + ["-i", SAMPLE, "-o", str(tmp_path / "o"),
-                               "-n", "100", "-b"] + argv[1:])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not" in err and needle in err
+def test_cli_rejects_unported(tmp_path, monkeypatch, capsys, argv, tier):
+    """The configs and flags the CLI once refused (exit 2) now pass its
+    dispatch: without a GPU the run stops only at the CUDA check (rc 1),
+    and the config's tier is the exact one wherever no kernel admits it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = argv[:1] + ["-i", SAMPLE, "-o", str(tmp_path / "o"), "-n", "100",
+                       "-b"] + argv[1:]
+    assert tcli.main(argv) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+    cfg = tcli.config_from_args(tcli.build_parser().parse_args(argv))
+    assert kernels.forward_fn(cfg).name == tier
+    assert not (tmp_path / "o").exists()
 
 
 def test_cli_reference_messages(capsys):
@@ -293,18 +296,37 @@ def test_cli_reference_messages(capsys):
     AlignConfig(algo="genasm", read_size=112, max_score=509),
 ], ids=["nw", "swg", "wfa_l1000", "wfa_smax80"])
 def test_unported_config_raises(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.forward_fn(cfg)
-    p, t, pl, tl = nat.parse_pairs(SAMPLE, 8, cfg.read_size)
-    with pytest.raises(NotImplementedError):
-        tapi.align(p, t, pl, tl, cfg, device="cpu")
+    """The configs that once raised NotImplementedError: the exact tier
+    serves them (dense; GenASM's host tier), as JAX's Pallas dispatch
+    returns none for them.  Short reads run here on a few sample pairs and
+    equal the oracle; NW at 20 kbp, a 20k-row Python loop on the CPU, runs
+    on the card (chip_smoke.py)."""
+    from aim_tpu.ops import pallas_kernels
+    assert pallas_kernels.forward_fn(cfg) is None
+    tier = kernels.forward_fn(cfg)
+    assert tier.name == ("host" if cfg.algo == "genasm" else "dense")
+    assert tier.retry is None
+    if cfg.read_size > 16352:
+        return
+    n = 4 if cfg.read_size > 1000 else 8
+    p, t, pl, tl = nat.parse_pairs(SAMPLE, n, cfg.read_size)
+    res = tapi.align(p, t, pl, tl, cfg, device="cpu")
+    if cfg.algo == "wfa":
+        osc = nat.wfa_align(p, t, pl, tl, mismatch=cfg.mismatch,
+                            gap_o=cfg.gap_o, gap_e=cfg.gap_e,
+                            max_score=cfg.max_score, adaptive=cfg.adaptive,
+                            backtrace=False)[0]
+    else:
+        osc = tapi._oracle_align(p, t, pl, tl, cfg)[0]
+    np.testing.assert_array_equal(res.scores, osc)
 
 
 def _forbidden(mod: str) -> bool:
-    """jax, and any module of the JAX package (aim_tpu, aim_tpu.*), which
-    the port keeps its own copies of."""
+    """jax, any module of the JAX package (aim_tpu, aim_tpu.*), which the
+    port keeps its own copies of, and the JAX side's tools/ (the port's are
+    aim_tpu_torch.tools)."""
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "aim_tpu")
+    return top in ("jax", "jaxlib", "aim_tpu", "tools")
 
 
 def _imports(path):
@@ -333,19 +355,22 @@ def test_port_has_no_jax_imports_ast():
             assert not _forbidden(mod), (path, mod)
     assert not _forbidden("aim_tpu_torch.native") and _forbidden("aim_tpu")
     assert _forbidden("aim_tpu.native") and _forbidden("jax.numpy")
+    assert _forbidden("tools.fuzz_kernels")
+    assert not _forbidden("aim_tpu_torch.tools.fuzz_kernels")
 
 
 def test_port_import_loads_no_jax():
     mods = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
         .removesuffix(".__init__") for p in PORT_FILES)
-    assert "aim_tpu_torch.ops.nwswg_long" in mods
+    assert {"aim_tpu_torch.ops.nwswg_long", "aim_tpu_torch.ops.probes",
+            "aim_tpu_torch.tools.fuzz_kernels"} <= set(mods)
     code = ("import sys; pre = [m for m in sys.modules if m.split('.')[0] "
-            "in ('jax', 'jaxlib', 'aim_tpu')]\n"
+            "in ('jax', 'jaxlib', 'aim_tpu', 'tools')]\n"
             f"import importlib\nfor m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'aim_tpu')]\n"
+            "('jax', 'jaxlib', 'aim_tpu', 'tools')]\n"
             "print('PRELOADED' if pre else 'BAD' if bad else 'CLEAN', bad)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

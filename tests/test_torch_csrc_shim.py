@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from aim_tpu_torch.ops import (_build, common, genasm, nw, nwswg_long, swg,
-                               wfa2, wfa_long)
+from aim_tpu_torch.ops import (_build, common, genasm, nw, nwswg_long,
+                               probes, swg, wfa2, wfa_long)
 from torch_cases import (CASES, GENASM_CASES, WFA_LONG_CASES, case,
                          genasm_case, nwswg_case, nwswg_long_case,
                          nwswg_records, torch_records, wfa_long_case)
@@ -200,3 +200,31 @@ def test_nwswg_long_cu_matches_plain_version(lib, name):
     np.testing.assert_array_equal(
         rec.numpy(), nwswg_long.nwswg_forward_long(
             *args, cfg=cfg, packed=packed, planes=planes).numpy())
+
+
+# every probe at 17 reps; M2 past its 60-row wrap; the while loop's
+# tile-wide exit taken (one element starts past 10**6 - 20)
+PROBE_SHIM = [(name, 17, None) for name in probes.PROBES] + [
+    ("dynslice_hist_row", 64, None), ("while_loop", 40, "exit")]
+
+
+@pytest.mark.parametrize("name,reps,variant", PROBE_SHIM,
+                         ids=[f"{n}-{r}" + (f"-{v}" if v else "")
+                              for n, r, v in PROBE_SHIM])
+def test_probes_cu_matches_plain_version(lib, name, reps, variant):
+    """M1/M2 (csrc/probes.cu) under the shim: outputs equal to the plain
+    versions, the output starting as garbage."""
+    args = list(probes.inputs(name))
+    if variant == "exit":
+        args[0] = args[0].clone()
+        args[0][3, 5] = 10 ** 6 - 20
+    pr = probes.PROBES[name]
+    out = torch.full(pr.out_shape, -7, dtype=pr.dtype)
+    assert lib.aim_probe(pr.index, args[0].data_ptr(),
+                         args[1].data_ptr() if len(args) > 1 else None,
+                         out.data_ptr(), reps, None) == 0
+    want = probes.run(name, reps, *args)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    if variant == "exit":
+        assert int(want.max()) >= 10 ** 6 and \
+            int(want.max()) < 10 ** 6 - 20 + reps

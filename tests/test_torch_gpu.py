@@ -20,14 +20,17 @@ from aim_tpu_torch import api as tapi
 from aim_tpu_torch import cli as tcli
 from aim_tpu_torch import datagen
 from aim_tpu_torch.cli import build_parser, config_from_args
-from aim_tpu_torch.ops import (common, genasm, genasm_long, nw, nwswg_long,
-                               swg, wfa2, wfa_long)
-from torch_cases import (CASES, GENASM_CASES, GENASM_LONG_CASES, MAIN,
-                         NWSWG_CASES, NWSWG_LONG_CASES, NWSWG_LONG_WIDE,
+from aim_tpu_torch.config import AlignConfig
+from aim_tpu_torch.ops import (common, genasm, genasm_long, nw, nw_xla,
+                               nwswg_long, probes, swg, swg_xla, wfa2,
+                               wfa_long, wfa_xla)
+from aim_tpu_torch.tools import fuzz_kernels, microbench, timing
+from torch_cases import (CASES, DENSE_CASES, GENASM_CASES, GENASM_LONG_CASES,
+                         MAIN, NWSWG_CASES, NWSWG_LONG_CASES, NWSWG_LONG_WIDE,
                          SAMPLE_N, WFA_LONG_CASES, case, datagen_batch,
-                         garbage_padded, genasm_case, genasm_long_case,
-                         nwswg_case, nwswg_long_case, nwswg_records,
-                         wfa_long_case)
+                         dense_batch, garbage_padded, genasm_case,
+                         genasm_long_case, nwswg_case, nwswg_long_case,
+                         nwswg_records, wfa_long_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "data", "sample-l100-e1-2K")
@@ -381,3 +384,129 @@ def test_cli_long_tiers_on_gpu(cuda_device, tmp_path, monkeypatch, argv, n,
     nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
                     cfg.backtrace)
     assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(probes.PROBES))
+def test_cuda_probe_matches_plain_version(cuda_device, name):
+    """M1/M2 (csrc/probes.cu) on the card: equal to the plain version at 0,
+    17 and 64 reps (M2 past its 60-row wrap), one launch a call."""
+    for reps in (0, 17, 64):
+        args = probes.inputs(name, cuda_device)
+        before = probes.launch_counts[name]
+        got = probes.run(name, reps, *args)
+        torch.cuda.synchronize()
+        assert probes.launch_counts[name] == before + 1
+        want = probes.PROBES[name].plain(reps, *(a.cpu() for a in args))
+        assert got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want), (name, reps)
+
+
+@pytest.mark.gpu
+def test_cuda_probe_while_loop_exit(cuda_device):
+    """The while loop's tile-wide exit (__syncthreads_or) taken."""
+    x = probes.inputs("while_loop")[0].clone()
+    x[3, 5] = 10 ** 6 - 20
+    got = probes.run("while_loop", 40, x.to(cuda_device)).cpu()
+    want = probes.run("while_loop", 40, x)
+    assert torch.equal(got, want) and int(want.max()) < 10 ** 6 + 1
+
+
+@pytest.mark.gpu
+def test_microbench_and_cuda_event_timing(cuda_device):
+    m = microbench.measure("i32_min_128x128", cuda_device)
+    assert m["ms_512"] > 0 and m["ms_64"] > 0 and m["plain_ms_512"] > 0
+    assert m["bound_ns_per_rep"] > 0
+    args = probes.inputs("popcount", cuda_device)
+    t = timing.best_of(lambda: probes.run("popcount", 512, *args),
+                       device=cuda_device, min_anchor_s=1e-6)
+    ba, bb, _, _ = timing.interleaved_ab(
+        lambda: probes.run("popcount", 64, *args),
+        lambda: probes.run("popcount", 512, *args), rounds=3,
+        device=cuda_device, min_anchor_s=1e-6)
+    assert t > 0 and bb > 0 and ba > 0
+
+
+DENSE_FWD = {"nw": nw_xla.nw_forward, "swg": swg_xla.swg_forward,
+             "wfa": wfa_xla.wfa_forward}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DENSE_CASES))
+def test_cuda_dense_tier_matches_cpu(cuda_device, name):
+    """The dense tiers on the card equal them on CPU tensors (where the CPU
+    tests hold them to JAX's XLA tier)."""
+    algo, R, kw, alphabet = DENSE_CASES[name]
+    cfg = AlignConfig(algo=algo, read_size=R, **kw)
+    batch = dense_batch(R, alphabet)
+    got = DENSE_FWD[algo](*common.to_device_batch(*batch, cuda_device),
+                          cfg=cfg)
+    want = DENSE_FWD[algo](*common.to_device_batch(*batch, "cpu"), cfg=cfg)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", [0, 3, 5, 6, 14, 26, 27])
+def test_cuda_fuzz_rows(cuda_device, row):
+    """Fuzz rows of every short tier (K1, K2, K4, dense SWG) on the card,
+    cut to 512 pairs: 0 bad pairs against the oracle."""
+    cut = fuzz_kernels.CONFIGS[row][:4] + (512,) + \
+        fuzz_kernels.CONFIGS[row][5:]
+    bad, rep = fuzz_kernels.run_one(cut, 101, device=cuda_device)
+    assert bad == 0, rep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,dense", [
+    (["wfa", "-b", "-r", "--backend", "xla"], wfa_xla),
+    (["nw", "-b", "--backend", "xla"], nw_xla),
+    (["swg", "-m", "-1", "-b"], swg_xla),
+], ids=["wfa-b-r-xla", "nw-b-xla", "swg-m-1"])
+def test_cli_dense_on_gpu(cuda_device, tmp_path, flags, dense):
+    """The dense tiers through the CLI on the card: cmp-equal to the
+    oracle, no hand kernel launched."""
+    out, ref = str(tmp_path / "gpu"), str(tmp_path / "oracle")
+    argv = flags[:1] + ["-i", SAMPLE, "-l", "100", "-e", "0.01",
+                        "-n", str(SAMPLE_N)] + flags[1:]
+    kmods = (wfa2, nw, swg, genasm, wfa_long, nwswg_long)
+    for mod in kmods:
+        mod.reset_launch_count()
+    dense.reset_call_count()
+    assert tcli.main(argv + ["-o", out, "-q"]) == 0
+    assert dense.call_count > 0
+    assert all(mod.launch_count == 0 for mod in kmods)
+    cfg = config_from_args(build_parser().parse_args(argv))
+    p, t, pl, tl = nat.parse_pairs(SAMPLE, SAMPLE_N, cfg.read_size)
+    if cfg.algo == "wfa":
+        sc, ops, b, e = nat.wfa_align(p, t, pl, tl, mismatch=cfg.mismatch,
+                                      gap_o=cfg.gap_o, gap_e=cfg.gap_e,
+                                      max_score=cfg.max_score,
+                                      adaptive=cfg.adaptive,
+                                      backtrace=cfg.backtrace)
+    else:
+        sc, ops, b, e = tapi._oracle_align(p, t, pl, tl, cfg)
+    nat.emit_output(ref, np.arange(len(sc), dtype=np.int32), sc, ops, b, e,
+                    cfg.backtrace)
+    assert open(out, "rb").read() == open(ref, "rb").read()
+
+
+@pytest.mark.gpu
+def test_cli_profile_and_energy_on_gpu(cuda_device, tmp_path, capsys):
+    """--profile leaves a chrome trace with K1's kernel events; --energy
+    prints the GPU energy NVML measured (or says it was not measured)."""
+    import json
+    prof = tmp_path / "prof"
+    argv = ["wfa", "-i", SAMPLE, "-l", "100", "-e", "0.01", "-n",
+            str(SAMPLE_N), "-b", "-r", "-o", str(tmp_path / "o"),
+            "--profile", str(prof), "--energy"]
+    assert tcli.main(argv) == 0
+    events = json.load(open(prof / "trace.json"))["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "wfa2" in e.get("name", "")
+               for e in events)
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("GPU Energy")]
+    assert len(line) == 1
+    if "not measured" not in line[0]:
+        assert float(line[0].rsplit(":", 1)[1]) >= 0

@@ -4,22 +4,22 @@ package's (aim_tpu/ops/pallas_kernels.py).
 Over a grid of configs -- every algorithm, 100 bp to 16 kbp, batches that
 2-bit pack and batches that do not -- the port serves a config with the
 kernel that ports the one JAX picks, with the same band-retry ladder
-(whether the tier has one, which, and its primary plane count), and raises
-NotImplementedError naming the ROADMAP item of every tier it has not
-ported yet.  Tolerance: exact.
+(whether the tier has one, which, and its primary plane count), and
+exactly where JAX's Pallas dispatch returns none with the exact tier JAX
+falls back to: the dense tier (JAX's XLA tier) or, for GenASM, the host
+tier.  Under backend="xla" every config takes the exact tier.  Tolerance:
+exact.
 """
-
-import re
 
 import pytest
 
 from aim_tpu.config import AlignConfig, derive_config
 from aim_tpu.ops import pallas_kernels
-from aim_tpu_torch.ops import (genasm, genasm_long, kernels, nw, nwswg_long,
-                               swg, wfa2, wfa_long)
+from aim_tpu_torch.ops import (genasm, genasm_long, kernels, nw, nw_xla,
+                               nwswg_long, swg, swg_xla, wfa2, wfa_long,
+                               wfa_xla)
 
-# the JAX function a tier's closure calls -> the port's kernel, or the
-# ROADMAP item that will port it
+# the JAX function a tier's closure calls -> the port's kernel
 JAX_TIERS = {
     "wfa_forward_pallas2": "K1",
     "wfa_forward_pallas_long": "K5",
@@ -46,7 +46,8 @@ def jax_tier(cfg, packed_ok):
     """(kernel or ROADMAP item, retry, primary planes) of JAX's tier."""
     fn = pallas_kernels.forward_fn(cfg, packed_ok=packed_ok)
     if fn is None:
-        return "item 5", None, None  # the exact XLA / host tier
+        # JAX's exact XLA tier, or GenASM's host tier (aim_tpu/api.py:146-157)
+        return ("host" if cfg.algo == "genasm" else "dense"), None, None
     names = [n for n in fn.__code__.co_freevars + fn.__code__.co_names
              if n in JAX_TIERS]
     assert len(names) == 1, names
@@ -56,16 +57,21 @@ def jax_tier(cfg, packed_ok):
             getattr(fn, "primary_planes", 1))
 
 
+EXACT = {"dense": (nw_xla.nw_forward, swg_xla.swg_forward,
+                   wfa_xla.wfa_forward), "host": (None,)}
+
+
 def port_tier(cfg, packed_ok):
-    try:
-        tier = kernels.forward_fn(cfg, packed_ok=packed_ok)
-    except NotImplementedError as e:
-        items = re.findall(r"ROADMAP Queue 1 (item \d+)", str(e))
-        assert len(items) == 1, str(e)
-        return items[0], None, None
+    tier = kernels.forward_fn(cfg, packed_ok=packed_ok)
+    if tier.name in EXACT:
+        assert tier.forward in EXACT[tier.name], tier
+        assert tier.retry is None and tier.records in (
+            kernels.DENSE_RECORDS + (kernels.HOST,))
+        return tier.name, None, None
     fwd = getattr(tier.forward, "func", tier.forward)
     if fwd is not tier.forward:  # the streamed tier at its routed planes
         assert tier.forward.keywords == {"planes": tier.primary_planes}
+    assert tier.name == PORT_KERNELS[fwd]
     return PORT_KERNELS[fwd], tier.retry, tier.primary_planes
 
 
@@ -105,10 +111,10 @@ def test_forward_fn_routes_as_reference(algo):
             seen.add(want[0])
             retried.add((want[0], want[1] is not None, want[2]))
     # the grid reaches every tier of the family, with and without a ladder
-    expect = {"wfa": {"K1", "K5", "item 5"},
-              "genasm": {"K4", "K6", "item 5"},
-              "nw": {"K2", "K6", "item 5"},
-              "swg": {"K3", "K6", "item 5"}}[algo]
+    expect = {"wfa": {"K1", "K5", "dense"},
+              "genasm": {"K4", "K6", "host"},
+              "nw": {"K2", "K6", "dense"},
+              "swg": {"K3", "K6", "dense"}}[algo]
     assert seen == expect, seen
     if algo in ("nw", "swg"):
         assert {("K6", True, 1), ("K6", True, 2)} <= retried, retried
@@ -118,6 +124,20 @@ def test_forward_fn_routes_as_reference(algo):
     if algo == "genasm":
         assert {("K6", True, 1), ("K6", True, 2), ("K4", False, 1)} \
             <= retried, retried
+
+
+@pytest.mark.parametrize("algo", ["wfa", "genasm", "nw", "swg"])
+def test_backend_xla_takes_the_exact_tier(algo):
+    """--backend xla: every config of the grid on the exact tier, whatever
+    kernel admits it (JAX's api.py:80-157 skips the Pallas dispatch)."""
+    for cfg in list(grid(algo)) + EDGES[algo]:
+        for packed_ok in (True, False):
+            tier = kernels.forward_fn(cfg.replace(backend="xla"), packed_ok)
+            assert tier.name == ("host" if algo == "genasm" else "dense")
+            assert tier.records == {"wfa": kernels.DENSE_WFA,
+                                    "nw": kernels.DENSE_NW,
+                                    "swg": kernels.DENSE_SWG,
+                                    "genasm": kernels.HOST}[algo]
 
 
 def test_tier_record_grammar_and_bytes():

@@ -165,15 +165,15 @@ def test_admission_matches_reference(algo):
         fn = jdispatch.forward_fn(cfg)
         # the streamed tier's callables carry their plane count
         j_vmem = fn is not None and not hasattr(fn, "primary_planes")
-        try:
-            tier = kernels.forward_fn(cfg)
-            port = tier.forward is (nw.nw_forward if algo == "nw"
-                                    else swg.swg_forward)
-            assert tier.records == kernels.PACKED_RUNS
-        except NotImplementedError as err:
-            port = False
-            item = "item 7" if fn is not None else "item 5"
-            assert f"ROADMAP Queue 1 {item}" in str(err), (cfg, str(err))
+        tier = kernels.forward_fn(cfg)
+        port = tier.forward is (nw.nw_forward if algo == "nw"
+                                else swg.swg_forward)
+        if not port:
+            # the streamed tier where JAX has one, else the dense tier
+            assert tier.name == ("K6" if fn is not None else "dense"), cfg
+        assert tier.records == (kernels.PACKED_RUNS if tier.name != "dense"
+                                else kernels.DENSE_NW if algo == "nw"
+                                else kernels.DENSE_SWG)
         assert port == j_vmem, cfg
         seen.add(port)
     assert seen == {True, False}

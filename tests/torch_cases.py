@@ -502,3 +502,58 @@ def genasm_long_case(name):
                           variant="hbm")
         return (cfg, *pack(pairs, 640))
     raise KeyError(name)
+
+
+# The dense exact tiers' cases: (algo, R, cfg kwargs, alphabet) -- the fuzz
+# harness's cost models (tools/fuzz_kernels.py), its SWG rows 3-5 and 26
+# among them (int8 cells the band cannot prove, a negative match cost), and
+# overflow cases; the batches are unbalanced (aliasing and multi-aliasing
+# pairs both occur).
+DENSE_CASES = {
+    "nw_r48_bt": ("nw", 48, dict(max_score=12, gap_i=2, gap_d=5, mismatch=1,
+                                 backtrace=True), "ACGT"),
+    "nw_r48_nobt": ("nw", 48, dict(max_score=16, gap_i=1, gap_d=1,
+                                   mismatch=4), "ACGT"),
+    "nw_r96_acgtn_bt": ("nw", 96, dict(max_score=24, gap_i=3, gap_d=2,
+                                       mismatch=2, backtrace=True), "ACGTN"),
+    # column 0's h * GAP_I passes int16 at h 33: most pairs flag
+    "nw_int16_ovf_bt": ("nw", 112, dict(max_score=8, gap_i=1000,
+                                        gap_d=1000, mismatch=1500,
+                                        backtrace=True),
+                        "ACGT"),
+    "swg_row3_int8_bt": ("swg", 48, dict(max_score=30, match=0, mismatch=5,
+                                         gap_o=6, gap_e=2, backtrace=True),
+                         "ACGT"),
+    "swg_row4_int8_bt": ("swg", 48, dict(max_score=60, match=0, mismatch=7,
+                                         gap_o=2, gap_e=3, backtrace=True),
+                         "ACGT"),
+    "swg_row5_match-1_bt": ("swg", 96, dict(max_score=200, match=-1,
+                                            mismatch=2, gap_o=3, gap_e=1,
+                                            variant="hbm", backtrace=True),
+                            "ACGT"),
+    "swg_row5_match-1_nobt": ("swg", 96, dict(max_score=200, match=-1,
+                                              mismatch=2, gap_o=3, gap_e=1,
+                                              variant="hbm"), "ACGT"),
+    "swg_row26_acgtn_bt": ("swg", 48, dict(max_score=30, match=0, mismatch=5,
+                                           gap_o=6, gap_e=2, backtrace=True),
+                           "ACGTN"),
+    "wfa_r48_bt": ("wfa", 48, dict(max_score=20, mismatch=2, gap_o=3,
+                                   gap_e=2, backtrace=True), "ACGT"),
+    "wfa_r96_adaptive_bt": ("wfa", 96, dict(max_score=40, mismatch=3,
+                                            gap_o=4, gap_e=1, adaptive=True,
+                                            backtrace=True), "ACGT"),
+    "wfa_r96_adaptive_nobt": ("wfa", 96, dict(max_score=40, mismatch=3,
+                                              gap_o=4, gap_e=1,
+                                              adaptive=True), "ACGT"),
+    # most pairs past smax 4: the overflow score, no history walked
+    "wfa_r48_overflow_bt": ("wfa", 48, dict(max_score=4, mismatch=3, gap_o=4,
+                                            gap_e=1, adaptive=True,
+                                            backtrace=True), "ACGT"),
+    "wfa_r48_acgtn_bt": ("wfa", 48, dict(max_score=14, mismatch=5, gap_o=2,
+                                         gap_e=1, backtrace=True), "ACGTN"),
+}
+
+
+def dense_batch(R, alphabet, n=64, seed=17):
+    return pack(random_pairs(seed=seed, n=n, max_len=R - 8, balanced=False,
+                             alphabet=alphabet), R)

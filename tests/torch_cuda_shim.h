@@ -5,9 +5,10 @@
 //
 // A warp is 32 threads and a std::barrier; the warp collectives the
 // kernels use (__syncwarp, __shfl_sync, __ballot_sync, __any_sync,
-// __reduce_min/max_sync) meet at that barrier.  A thread that returns drops
-// out of it (the kernels return apart only where no collective follows, as
-// K1's walk on lane 0).  The test rewrites `extern __shared__` and the
+// __reduce_min/max_sync) meet at that barrier.  A block has one barrier of
+// all its threads for __syncthreads and __syncthreads_or.  A thread that
+// returns drops out of both (the kernels return apart only where no
+// collective follows, as K1's walk on lane 0).  The test rewrites `extern __shared__` and the
 // `<<<...>>>` launches textually; a launch runs its blocks a few at a time,
 // each with its own dynamic shared memory, filled with 0xAB so a read of an
 // unwritten byte shows.
@@ -57,6 +58,22 @@ inline auto max(A a, B b) -> std::common_type_t<A, B> {
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// SIMD-in-word: four int8 lanes a word, each add wrapping, each min signed
+template <class Op>
+inline unsigned shim_bytes(unsigned a, unsigned b, Op op) {
+  unsigned r = 0;
+  for (int j = 0; j < 4; ++j)
+    r |= (unsigned)(uint8_t)op((int8_t)(a >> 8 * j), (int8_t)(b >> 8 * j))
+         << 8 * j;
+  return r;
+}
+inline unsigned __vadd4(unsigned a, unsigned b) {
+  return shim_bytes(a, b, [](int x, int y) { return x + y; });
+}
+inline unsigned __vmins4(unsigned a, unsigned b) {
+  return shim_bytes(a, b, [](int x, int y) { return x < y ? x : y; });
+}
 
 namespace shim {
 
@@ -64,7 +81,13 @@ struct Warp {
   std::barrier<> bar{32};
   uint64_t slot[32];
 };
+struct Block {
+  explicit Block(unsigned threads) : bar(threads), slot(threads) {}
+  std::barrier<> bar;
+  std::vector<int> slot;
+};
 inline thread_local Warp *warp;
+inline thread_local Block *block;
 inline thread_local unsigned char *shared;
 inline unsigned char *smem() { return shared; }
 inline int lane() { return threadIdx.x & 31; }
@@ -76,6 +99,7 @@ void launch(K kern, unsigned blocks, unsigned threads, size_t smem_bytes,
   for (unsigned b0 = 0; b0 < blocks; b0 += together) {
     std::vector<std::thread> ts;
     std::vector<std::unique_ptr<Warp>> warps;
+    std::vector<std::unique_ptr<Block>> blks;
     std::vector<std::vector<unsigned char>> mems;
     for (unsigned b = b0; b < std::min(blocks, b0 + together); ++b) {
       mems.emplace_back(smem_bytes + 16, 0xAB);
@@ -84,6 +108,8 @@ void launch(K kern, unsigned blocks, unsigned threads, size_t smem_bytes,
       const size_t w0 = warps.size();
       for (unsigned w = 0; w < threads / 32; ++w)
         warps.emplace_back(new Warp);
+      blks.emplace_back(new Block(threads));
+      Block *bp = blks.back().get();
       for (unsigned t = 0; t < threads; ++t) {
         Warp *wp = warps[w0 + t / 32].get();
         ts.emplace_back([=, &params] {
@@ -91,9 +117,11 @@ void launch(K kern, unsigned blocks, unsigned threads, size_t smem_bytes,
           blockIdx.x = b;
           blockDim.x = threads;
           warp = wp;
+          block = bp;
           shared = m;
           kern(params);
           warp->bar.arrive_and_drop();
+          block->bar.arrive_and_drop();
         });
       }
     }
@@ -143,4 +171,13 @@ inline int __reduce_min_sync(unsigned, int v) {
 }
 inline int __reduce_max_sync(unsigned, int v) {
   return shim_reduce(v, [](int a, int b) { return a < b ? b : a; });
+}
+inline void __syncthreads() { shim::block->bar.arrive_and_wait(); }
+inline int __syncthreads_or(int pred) {
+  shim::block->slot[threadIdx.x] = pred != 0;
+  __syncthreads();
+  int r = 0;
+  for (int v : shim::block->slot) r |= v;
+  __syncthreads();
+  return r;
 }
