@@ -128,9 +128,15 @@ def declare(lib):
     lib.aim_nw_forward.argtypes = [vp] * 6 + [cl] + [ci] * 13 + [vp]
     lib.aim_swg_forward.restype = ci
     lib.aim_swg_forward.argtypes = [vp] * 6 + [cl] + [ci] * 17 + [vp]
+    # R L backtrace planes_smem, then the int[6] of INFO_KEYS
+    lib.aim_swg_info.restype = ci
+    lib.aim_swg_info.argtypes = [ci] * 4 + [vp]
     # pointers, n, then width R k Rp backtrace hist_smem, and the stream
     lib.aim_genasm_forward.restype = ci
     lib.aim_genasm_forward.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [vp]
+    # R k backtrace hist_smem, then the int[6] of INFO_KEYS
+    lib.aim_genasm_info.restype = ci
+    lib.aim_genasm_info.argtypes = [ci] * 4 + [vp]
     # pointers, n, then width packed smax R, the costs, the flags
     # adaptive backtrace, and the stream
     lib.aim_wfa_long_forward.restype = ci
@@ -154,3 +160,21 @@ def declare(lib):
 
 def error_string(code: int) -> str:
     return load().aim_cuda_error_string(int(code)).decode()
+
+
+# What ``aim_<name>_info`` reports of the kernel a config launches: CUDA's
+# function attributes, its occupancy calculator at the launch's shared
+# memory, and the kernel's path.
+INFO_KEYS = ("registers", "local_bytes", "smem_block_bytes", "blocks_per_sm",
+             "pairs_per_warp", "hist_windowed")
+
+
+def kernel_info(name: str, *ints) -> dict:
+    """``aim_<name>_info(*ints, out)`` of the loaded library as a dict of
+    INFO_KEYS; raises if the call fails."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    rc = getattr(load(), f"aim_{name}_info")(*ints, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel info failed: {error_string(rc)} "
+                           f"(cudaError {rc})")
+    return dict(zip(INFO_KEYS, out))

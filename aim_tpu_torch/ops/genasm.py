@@ -47,11 +47,15 @@ REF_WBITS = 28      # the reference's word width (admission only)
 WBITS = 32          # the port's word width
 M32 = (1 << 32) - 1
 OP_M, OP_X, OP_I, OP_D = 0, 1, 2, 3
-# CUDA kernel geometry (kWarps in csrc/genasm.cu): one warp per pair, its
-# (d, word) rows over the lanes; the bit-volume history lives in shared
-# memory while a block's share fits.
+# CUDA kernel geometry (csrc/genasm.cu): WARPS warps a block.  Where the
+# DW rows of a pair fit in 32 lanes, a pair takes a segment of the smallest
+# power of two >= DW lanes (several pairs a warp, a row a lane); the history
+# is windowed to k+1 words a level for k <= WINDOW_MAX_K.  Past 32 rows, one
+# warp a pair with the full history.  The history lives in shared memory
+# while a block's share fits in SMEM_HIST_LIMIT.
 WARPS = 4
 SMEM_HIST_LIMIT = 48 * 1024
+WINDOW_MAX_K = 6    # a window of bits [l - 3k, l + 2k + 1]: 5k + 2 <= 32
 REF_WORDS = 1 << 24  # history words (levels x pairs x rows) of a plain chunk
 
 # Launches of the CUDA kernel since the last reset (CPU calls never count).
@@ -107,26 +111,51 @@ def geom(cfg: AlignConfig):
     return R, k, Wg, (k + 1) * Wg, round_up(R + 2, 8)
 
 
+def seg_lanes(cfg: AlignConfig) -> int:
+    """Lanes a pair on the segmented path (the smallest power of two >= DW),
+    0 on the wide path (DW > 32, one warp a pair)."""
+    DW = geom(cfg)[3]
+    if DW > 32:
+        return 0
+    S = 1
+    while S < DW:
+        S *= 2
+    return S
+
+
+def pairs_per_warp(cfg: AlignConfig) -> int:
+    S = seg_lanes(cfg)
+    return 32 // S if S else 1
+
+
+def hist_windowed(cfg: AlignConfig) -> bool:
+    """Whether a level keeps one 32-bit window a group (k+1 words) rather
+    than the full DW rows: the segmented path at k <= WINDOW_MAX_K."""
+    return seg_lanes(cfg) > 0 and cfg.max_score <= WINDOW_MAX_K
+
+
 def hist_bytes_per_pair(cfg: AlignConfig) -> int:
-    """Bit-volume history of one pair: R+1 levels x DW words of 32 bits."""
-    R, _, _, DW, _ = geom(cfg)
-    return (R + 1) * DW * 4
+    """History of one pair: R+1 levels x (k+1 windows, or DW rows) of 32
+    bits."""
+    R, k, _, DW, _ = geom(cfg)
+    return (R + 1) * ((k + 1) if hist_windowed(cfg) else DW) * 4
 
 
 def warp_smem_bytes(cfg: AlignConfig, hist_in_smem: bool) -> int:
-    """Shared memory of one warp (pair) in csrc/genasm.cu: the four pattern
-    masks, two row buffers, the history when it is kept there (backtrace
-    only), and the pattern and text codes.  The kernel's host function
-    computes the same layout."""
+    """Shared memory of one warp in csrc/genasm.cu.  Segmented path: for
+    each of its pairs the pattern and text codes and the history when it is
+    kept there (backtrace only).  Wide path: the four pattern masks, two row
+    buffers, the history when kept there, and the codes.  The kernel's host
+    function computes the same layout."""
     _, _, Wg, DW, Rp = geom(cfg)
-    b = 16 * Wg + 8 * DW + 2 * Rp
-    if hist_in_smem and cfg.backtrace:
-        b += hist_bytes_per_pair(cfg)
-    return round_up(b, 16)
+    hist = hist_bytes_per_pair(cfg) if hist_in_smem and cfg.backtrace else 0
+    if seg_lanes(cfg):
+        return pairs_per_warp(cfg) * round_up(2 * Rp + hist, 16)
+    return round_up(16 * Wg + 8 * DW + 2 * Rp + hist, 16)
 
 
 def hist_in_smem(cfg: AlignConfig) -> bool:
-    """Whether the history of a block's WARPS pairs fits in 48 KB of shared
+    """Whether the history of a block's pairs fits in 48 KB of shared
     memory (else it goes to a global scratch)."""
     return WARPS * warp_smem_bytes(cfg.replace(backtrace=True), True) \
         <= SMEM_HIST_LIMIT
@@ -365,3 +394,12 @@ def genasm_forward(pats, txts, plens, tlens, *, cfg: AlignConfig,
                            f"{_build.error_string(rc)} (cudaError {rc})")
     launch_count += 1
     return rec
+
+
+def kernel_info(cfg: AlignConfig) -> dict:
+    """What csrc/genasm.cu runs at ``cfg`` on the card (``_build.INFO_KEYS``:
+    registers, spill bytes, shared memory and resident blocks an SM, pairs a
+    warp, windowed history)."""
+    from aim_tpu_torch.ops import _build
+    return _build.kernel_info("genasm", cfg.read_size, cfg.max_score,
+                              int(cfg.backtrace), int(hist_in_smem(cfg)))

@@ -128,39 +128,42 @@ def vmem_fit_nw(cfg: AlignConfig) -> bool:
 # kernel geometry shared with csrc/ (code planes: one bit a lane a row)
 # ---------------------------------------------------------------------------
 
+N_PLANES = 3        # 2 code bits + is-match
+
+
 def plane_words(cfg: AlignConfig) -> int:
     """32-bit words a plane row takes: one bit per band lane."""
     return max(1, band_geometry(cfg)[1] // 32)
 
 
-def plane_bytes_per_pair(cfg: AlignConfig, n_planes: int) -> int:
-    """Code planes of one pair: R rows x n_planes planes x plane_words."""
+def plane_bytes_per_pair(cfg: AlignConfig) -> int:
+    """Code planes of one pair: R rows x N_PLANES planes x plane_words."""
     if not cfg.backtrace:
         return 0
-    return cfg.read_size * n_planes * plane_words(cfg) * 4
+    return cfg.read_size * N_PLANES * plane_words(cfg) * 4
 
 
-def warp_smem_bytes(cfg: AlignConfig, n_planes: int, in_smem: bool) -> int:
-    """Shared memory of one warp (pair) in csrc/nw.cu and csrc/swg.cu: the
-    unpacked pattern and text, and (optionally) the code planes.  The
-    kernels' host functions compute the same layout."""
+def warp_smem_bytes(cfg: AlignConfig, in_smem: bool) -> int:
+    """Shared memory of one warp (pair) in csrc/nw.cu: the unpacked pattern
+    and text, and (optionally) the code planes.  The kernel's host function
+    computes the same layout."""
     b = 2 * round_up(cfg.read_size, 16)
     if in_smem:
-        b += plane_bytes_per_pair(cfg, n_planes)
+        b += plane_bytes_per_pair(cfg)
     return round_up(b, 16)
 
 
-def planes_in_smem(cfg: AlignConfig, n_planes: int) -> bool:
-    return WARPS * warp_smem_bytes(cfg, n_planes, True) <= SMEM_PLANES_LIMIT
+def planes_in_smem(cfg: AlignConfig) -> bool:
+    return WARPS * warp_smem_bytes(cfg, True) <= SMEM_PLANES_LIMIT
 
 
-def device_bytes_per_pair(cfg: AlignConfig, n_planes: int = 3) -> int:
+def device_bytes_per_pair(cfg: AlignConfig) -> int:
     """Device memory one pair holds during a kernel call: its two uploaded
     sequences (raw bytes, the larger form), lengths, the record and (when
     the code planes do not fit in shared memory) its global plane scratch."""
     per = 2 * cfg.read_size + 8 + 2 * runs_lanes_nw(cfg)
-    if not planes_in_smem(cfg, n_planes):
-        per += plane_bytes_per_pair(cfg, n_planes)
+    if not planes_in_smem(cfg):
+        per += plane_bytes_per_pair(cfg)
     return per
 
 
@@ -434,11 +437,17 @@ def kernel_args(cfg: AlignConfig):
     return DS, (cfg.gap_i, cfg.gap_d, cfg.mismatch, int(check_ovf))
 
 
-def launch_band(kind, cfg, n_planes, DS, costs, pats, txts, plens, tlens,
+def plane_layout(cfg: AlignConfig):
+    """(planes in shared memory, plane bytes a pair) of csrc/nw.cu."""
+    return planes_in_smem(cfg), plane_bytes_per_pair(cfg)
+
+
+def launch_band(kind, cfg, layout, DS, costs, pats, txts, plens, tlens,
                 packed):
-    """Allocate the record (and the plane scratch when the planes do not
-    fit in shared memory) and launch ``aim_<kind>_forward`` from csrc/ on
-    the current stream.  Raises if the launch fails."""
+    """Allocate the record (and, where ``layout`` = (planes in shared memory,
+    plane bytes a pair) puts the planes in device memory, their scratch)
+    and launch ``aim_<kind>_forward`` from csrc/ on the current stream.
+    Raises if the launch fails."""
     from aim_tpu_torch.ops import _build
     lib = _build.load()
     dev = pats.device
@@ -447,12 +456,11 @@ def launch_band(kind, cfg, n_planes, DS, costs, pats, txts, plens, tlens,
     rec = torch.empty((n, NRL), dtype=torch.int16, device=dev)
     if n == 0:
         return rec
-    in_smem = planes_in_smem(cfg, n_planes)
+    in_smem, plane_bytes = layout
     scratch = None
     if cfg.backtrace and not in_smem:
-        scratch = torch.empty(
-            (n, plane_bytes_per_pair(cfg, n_planes) // 4), dtype=torch.int32,
-            device=dev)
+        scratch = torch.empty((n, plane_bytes), dtype=torch.uint8,
+                              device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"aim_{kind}_forward")(
@@ -482,8 +490,8 @@ def nw_forward(pats, txts, plens, tlens, *, cfg: AlignConfig,
     check_pair_tensors(pats, txts, plens, tlens, "nw_forward")
     if pats.device.type == "cpu":
         return nw_reference(pats, txts, plens, tlens, cfg=cfg, packed=packed)
-    rec = launch_band("nw", cfg, 3, *kernel_args(cfg), pats, txts, plens,
-                      tlens, packed)
+    rec = launch_band("nw", cfg, plane_layout(cfg), *kernel_args(cfg), pats,
+                      txts, plens, tlens, packed)
     if pats.shape[0]:
         launch_count += 1
     return rec

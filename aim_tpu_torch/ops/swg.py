@@ -11,6 +11,11 @@ coupled M/D in-row chain is one truncated min-plus scan of depth DS
 priority in that order), bit 2 D opened, bit 3 I opened; plus an is-match
 bit.  The walk is layered (M / I / D).
 
+The CUDA kernel holds 32/L pairs a warp for L <= 32 (one band lane a
+thread) and one pair a warp past that; it keeps the five planes as L-bit
+words a row (``plane_bytes_per_pair``, ``warp_smem_bytes``,
+``planes_in_smem`` mirror its host sizing).
+
 Cells are int32 here and in the CUDA kernel: the reference computes in
 int32 too, and admission (``swg_int8_sound``) proves that int8 cells of
 the reference tape never wrap on the configs this tier serves.
@@ -27,7 +32,7 @@ import torch
 
 from aim_tpu_torch.config import AlignConfig, wram_feasible
 from aim_tpu_torch.ops import nw
-from aim_tpu_torch.ops.common import check_pair_tensors
+from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 from aim_tpu_torch.ops.nw import (I32, INF, OP_D, OP_I, OP_M, OP_X,
                                   band_geometry, band_half, chunk_pairs,
                                   emit_merge, emit_tails, floordiv,
@@ -92,8 +97,61 @@ def cell_limits(cfg: AlignConfig):
     return cmax, margin, check_ovf
 
 
+# ---------------------------------------------------------------------------
+# kernel geometry shared with csrc/swg.cu
+# ---------------------------------------------------------------------------
+
+def pairs_per_warp(cfg: AlignConfig) -> int:
+    """Pairs a warp of csrc/swg.cu: 32/L segments of L band lanes for
+    L <= 32, else one pair a warp."""
+    L = band_geometry(cfg)[1]
+    return 32 // L if L <= 32 else 1
+
+
+def plane_bytes_per_pair(cfg: AlignConfig) -> int:
+    """Code planes of one pair: R rows x N_PLANES words of L bits."""
+    if not cfg.backtrace:
+        return 0
+    return cfg.read_size * N_PLANES * band_geometry(cfg)[1] // 8
+
+
+def warp_smem_bytes(cfg: AlignConfig, in_smem: bool) -> int:
+    """Shared memory of one warp: for each of its pairs the unpacked
+    pattern and text and (optionally) the code planes."""
+    b = 2 * round_up(cfg.read_size, 16)
+    if in_smem:
+        b += plane_bytes_per_pair(cfg)
+    return pairs_per_warp(cfg) * round_up(b, 16)
+
+
+def planes_in_smem(cfg: AlignConfig) -> bool:
+    """Whether a block's share of planes fits in 48 KB of shared memory
+    (else they go to a global scratch)."""
+    return nw.WARPS * warp_smem_bytes(cfg, True) <= nw.SMEM_PLANES_LIMIT
+
+
+def plane_layout(cfg: AlignConfig):
+    """(planes in shared memory, plane bytes a pair) of csrc/swg.cu."""
+    return planes_in_smem(cfg), plane_bytes_per_pair(cfg)
+
+
 def device_bytes_per_pair(cfg: AlignConfig) -> int:
-    return nw.device_bytes_per_pair(cfg, N_PLANES)
+    """Device memory one pair holds during a kernel call: its two uploaded
+    sequences (raw bytes), lengths, the record and (when the planes do not
+    fit in shared memory) its plane scratch."""
+    per = 2 * cfg.read_size + 8 + 2 * runs_lanes_nw(cfg)
+    if not planes_in_smem(cfg):
+        per += plane_bytes_per_pair(cfg)
+    return per
+
+
+def kernel_info(cfg: AlignConfig) -> dict:
+    """What csrc/swg.cu runs at ``cfg`` on the card (``_build.INFO_KEYS``:
+    registers, spill bytes, shared memory and resident blocks an SM, pairs a
+    warp)."""
+    from aim_tpu_torch.ops import _build
+    return _build.kernel_info("swg", cfg.read_size, band_geometry(cfg)[1],
+                              int(cfg.backtrace), int(planes_in_smem(cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +351,8 @@ def swg_forward(pats, txts, plens, tlens, *, cfg: AlignConfig,
     if pats.device.type == "cpu":
         return swg_reference(pats, txts, plens, tlens, cfg=cfg,
                              packed=packed)
-    rec = launch_band("swg", cfg, N_PLANES, *kernel_args(cfg), pats, txts,
-                      plens, tlens, packed)
+    rec = launch_band("swg", cfg, plane_layout(cfg), *kernel_args(cfg),
+                      pats, txts, plens, tlens, packed)
     if pats.shape[0]:
         launch_count += 1
     return rec

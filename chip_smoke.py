@@ -11,8 +11,12 @@ before the last line:
               records byte-equal, and the scores/CIGARs of every pair (K1,
               K4, K5) or every unflagged pair (K2 NW, K3 SWG, K6/K7) equal
               to the native oracle.  K1 (csrc/wfa2.cu) on 12 configs, K2
-              (csrc/nw.cu) and K3 (csrc/swg.cu) on 14, K4 (csrc/genasm.cu)
-              on 12, 4096 seeded pairs each; K5 (csrc/wfa_long.cu) on 8
+              (csrc/nw.cu) on 9, K3 (csrc/swg.cu) on 12 (band widths 8 to
+              128), K4 (csrc/genasm.cu) on 15 (6 to 150 rows), 4096 seeded
+              pairs each (4095 where neighbours in a warp differ: normal
+              beside flagged, overflowing or edge pairs, the last warp
+              part-empty); each K2-K4 line names the kernel's path (pairs
+              a warp, windowed history); K5 (csrc/wfa_long.cu) on 8
               long-read configs of 16 to 4096 pairs; K6/K7
               (csrc/nwswg_long.cu) on NW and SWG at planes 1, 2, 4 and 8,
               with and without backtrace, raw and packed, records of 256 to
@@ -43,7 +47,9 @@ before the last line:
   4. timing   each kernel vs its plain version on one chunk of its
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
               pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
-              records compared once more at this, the CLI's launch shape.
+              records compared once more at this, the CLI's launch shape;
+              K3's and K4's registers, spills, shared memory and resident
+              blocks an SM.
   5. probes   the tooling path: `aim_tpu_torch.tools.microbench` drives the
               13 CUDA probes of csrc/probes.cu (M1's twelve, M2) with their
               launch counters at 0; each probe's output equal to its plain
@@ -297,6 +303,32 @@ def band_configs():
     out.append(("nw_L128_R1120", AlignConfig(
         algo="nw", read_size=1120, max_score=120, gap_i=1, gap_d=1,
         mismatch=1, backtrace=True), dg(0.02, length=1000, R=1120)))
+    # K3 at each band width past L = 16: 4 pairs a warp at L = 8, one at
+    # 32, 128; L = 16 with its planes in the global scratch
+    out += [("swg_L8", swg_main.replace(max_score=2), dg(0.005)),
+            ("swg_L32", swg_main.replace(max_score=10), dg(0.02)),
+            ("swg_L128_R96", AlignConfig(
+                algo="swg", read_size=96, max_score=60, match=0,
+                mismatch=3, gap_o=4, gap_e=1, variant="hbm",
+                backtrace=True), fuzz_batch(96)),
+            ("swg_L16_R520_global", AlignConfig(
+                algo="swg", read_size=520, max_score=5, match=0,
+                mismatch=3, gap_o=4, gap_e=1, variant="hbm",
+                backtrace=True), dg(0.002, length=500, R=520))]
+    # unlike neighbours in one warp: 1 % and 10 % error pairs interleaved
+    # (a normal pair beside a flagged one), the edge pairs among them, and
+    # an odd pair count (the last warp part-empty)
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_cases import EDGE_PAIRS, interleave
+    from util import pack
+    near, far = dg(0.01), dg(0.1, seed=SEED + 3)
+    mixed = interleave(tuple(a[:2048] for a in near),
+                       tuple(a[:2048] for a in far),
+                       pack(EDGE_PAIRS * 8, 112))
+    for bt in (True, False):
+        out.append((f"swg_mixed_neighbours_bt{int(bt)}",
+                    swg_main.replace(backtrace=bt),
+                    tuple(a[:4095] for a in mixed)))
     return out
 
 
@@ -340,12 +372,13 @@ def phase_band_kernels():
                             != oops[i, ob[i]:oe[i]].tobytes()
                             for i in np.nonzero(ok)[0])
         C, L, _, NRL = nw.band_geometry(cfg)
-        in_smem = nw.planes_in_smem(cfg, 3 if cfg.algo == "nw"
-                                    else swg.N_PLANES)
+        in_smem = mod.plane_layout(cfg)[0]
+        ppw = swg.pairs_per_warp(cfg) if cfg.algo == "swg" else 1
         emit({"phase": "kernel", "kernel": cfg.algo, "config": name,
               "pairs": len(pl), "read_size": cfg.read_size,
               "max_score": cfg.max_score, "C": C, "L": L, "NRL": NRL,
               "backtrace": cfg.backtrace, "packed": packed,
+              "pairs_per_warp": ppw, "hist_windowed": False,
               "planes_in_smem": in_smem, "flagged": int(flagged.sum()),
               "record_rows_differ": rows, "max_abs_err": err,
               "score_bad": score_bad, "cigar_bad": cigar_bad})
@@ -355,6 +388,14 @@ def phase_band_kernels():
             fail(f"{name}: expected most pairs flagged")
         if name == "nw_L128_R1120" and (L != 128 or in_smem):
             fail(f"{name}: expected L = 128 with global planes")
+        want_path = {"swg_main_bt1": (16, 2, True), "swg_L8": (8, 4, True),
+                     "swg_L32": (32, 1, True), "swg_L128_R96": (128, 1, True),
+                     "swg_L16_R520_global": (16, 2, False)}.get(name)
+        if want_path and want_path != (L, ppw, in_smem):
+            fail(f"{name}: expected (L, pairs a warp, planes in shared "
+                 f"memory) {want_path}, got {(L, ppw, in_smem)}")
+        if name.startswith("swg_mixed") and not 0.3 < flagged.mean() < 0.7:
+            fail(f"{name}: expected flagged and unflagged neighbours")
     return max_err
 
 
@@ -364,7 +405,7 @@ def genasm_configs():
     from aim_tpu_torch import datagen
     from aim_tpu_torch.config import AlignConfig, derive_config
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from torch_cases import GENASM_EDGES
+    from torch_cases import GENASM_EDGES, interleave
     from util import pack
 
     main = derive_config("genasm", 100, 0.01, backtrace=True)
@@ -396,6 +437,27 @@ def genasm_configs():
     out.append(("genasm_R160_k24", AlignConfig(
         algo="genasm", read_size=160, max_score=24, backtrace=True),
         fuzz_batch(160)))
+    # the segmented path's other shapes: 24 rows windowed (k 5), 32 rows
+    # with the full history in the global scratch (k 7), 11 rows with the
+    # full history (R 24, k 10: two pairs a warp)
+    out += [("genasm_R112_k5", main.replace(max_score=5),
+             datagen.generate_pairs(4096, 100, 0.03, read_size=112,
+                                    seed=SEED)),
+            ("genasm_R112_k7", main.replace(max_score=7),
+             datagen.generate_pairs(4096, 100, 0.04, read_size=112,
+                                    seed=SEED)),
+            ("genasm_R24_k10", AlignConfig(
+                algo="genasm", read_size=24, max_score=10, backtrace=True),
+             fuzz_batch(24))]
+    # unlike neighbours in one warp: main and overflowing pairs
+    # interleaved, the edge pairs among them, an odd pair count
+    mixed = interleave(tuple(a[:2048] for a in dg),
+                       tuple(a[:2048] for a in over),
+                       pack(GENASM_EDGES * 4, 112))
+    for bt in (True, False):
+        out.append((f"genasm_mixed_neighbours_bt{int(bt)}",
+                    main.replace(backtrace=bt),
+                    tuple(a[:4095] for a in mixed)))
     return out
 
 
@@ -434,10 +496,13 @@ def phase_genasm_kernel():
                             != oops[i, ob[i]:oe[i]].tobytes()
                             for i in range(len(pl)))
         over = int((osc > k).sum())
+        path = (genasm.pairs_per_warp(cfg), genasm.hist_windowed(cfg),
+                genasm.hist_in_smem(cfg))
         emit({"phase": "kernel", "kernel": "genasm", "config": name,
               "pairs": len(pl), "read_size": R, "max_score": k,
               "rows": genasm.geom(cfg)[3], "backtrace": cfg.backtrace,
-              "hist_in_smem": genasm.hist_in_smem(cfg),
+              "pairs_per_warp": path[0], "hist_windowed": path[1],
+              "hist_in_smem": path[2],
               "overflow_pairs": over, "record_rows_differ": rows,
               "max_abs_err": err, "score_bad": score_bad,
               "cigar_bad": cigar_bad})
@@ -447,6 +512,17 @@ def phase_genasm_kernel():
             fail(f"{name}: expected most pairs past k")
         if "k26" in name and genasm.hist_in_smem(cfg):
             fail(f"{name}: expected the global history")
+        want_path = {"genasm_main_bt1": (2, True, True),
+                     "genasm_R112_k5": (1, True, True),
+                     "genasm_R112_k7": (1, False, False),
+                     "genasm_R24_k10": (2, False, True),
+                     "genasm_R16_k5_edges": (4, True, True),
+                     "genasm_R112_k26_bt1": (1, False, False)}.get(name)
+        if want_path and want_path != path:
+            fail(f"{name}: expected (pairs a warp, windowed, in shared "
+                 f"memory) {want_path}, got {path}")
+        if "mixed" in name and not 0.2 < over / len(pl) < 0.8:
+            fail(f"{name}: expected overflowing and normal neighbours")
     return max_err
 
 
@@ -1078,14 +1154,15 @@ def phase_timing(reps=20):
     def cfg_of(algo, length, **kw):
         return derive_config(algo, length, 0.01, backtrace=True, **kw)
 
-    def report(name, cfg, length, flags, n, k_ms, p_ms, k_reps, err, bnd):
+    def report(name, cfg, length, flags, n, k_ms, p_ms, k_reps, err, bnd,
+               info=None):
         emit({"phase": "timing", "kernel": name,
               "config": f"{cfg.algo} -l {length} -e 0.01 {flags}"
                         f" (R{cfg.read_size} smax{cfg.max_score})",
               "pairs": n, "kernel_ms": k_ms, "plain_ms": p_ms,
               "kernel_reps": k_reps, "max_abs_err": err,
               "bound_ms": bnd[0], "bound_by": bnd[1], "bound_bytes": bnd[2],
-              "bound_int32_ops": bnd[3], "gpu": gpu})
+              "bound_int32_ops": bnd[3], **(info or {}), "gpu": gpu})
         if err:
             fail(f"{name}: {n}-pair chunk: kernel disagrees with the "
                  "plain version")
@@ -1120,8 +1197,11 @@ def phase_timing(reps=20):
         want = ref(*args, cfg=cfg, packed=packed).cpu().numpy()
         err = int(np.abs(got.astype(np.int64) - want).max())
         bnd = chunk_bound(name, cfg, args, rec)
+        # the redesigned kernels' registers, spills, shared memory and
+        # resident blocks an SM, pairs a warp (CUDA's function attributes)
+        info = {"swg": swg, "genasm": genasm}.get(name)
         report(name, cfg, length, flags, len(pl), k_ms, p_ms, k_reps, err,
-               bnd)
+               bnd, info.kernel_info(cfg) if info else None)
         out[name] = (k_ms, p_ms, err) + bnd[:2]
 
     # K6 and K7 apart, on the streamed tier's canonical chunk: 4096 pairs of

@@ -30,8 +30,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LAUNCH = re.compile(r"(\w+)\s*<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>"
                     r"\((\w+)\);", re.S)
 SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
+# K3 at every band width (L 8, 16, 32 on the segmented path, 64 and 128
+# one pair a warp), with neighbours that differ in one warp, score only,
+# and its planes in the global scratch
 NWSWG = ["nw_main_bt", "swg_main_bt", "nw_edges", "swg_edges",
-         "nw_ovf_check", "nw_l128", "swg_acgtn"]
+         "nw_ovf_check", "nw_l128", "swg_acgtn", "swg_main_nobt", "swg_l8",
+         "swg_l32", "swg_int16", "swg_l128", "swg_mixed", "swg_r520_global"]
 NWSWG_LONG_SHIM = ["nw_p1_r200", "swg_p2_r200"]
 
 
@@ -114,17 +118,15 @@ def test_wfa2_cu_matches_plain_version(lib, name):
 def test_band_cu_matches_plain_version(lib, name):
     cfg, p, t, pl, tl, packed = nwswg_case(name)
     mod = nw if cfg.algo == "nw" else swg
-    n_planes = 3 if cfg.algo == "nw" else swg.N_PLANES
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
         p, t, np.asarray(pl, np.int32), np.asarray(tl, np.int32))]
     C, L, _, NRL = nw.band_geometry(cfg)
     DS, costs = mod.kernel_args(cfg)
-    in_smem = nw.planes_in_smem(cfg, n_planes)
+    in_smem, plane_bytes = mod.plane_layout(cfg)
+    # the scratch starts as garbage, as torch.empty leaves it on the card
     scratch = None
     if cfg.backtrace and not in_smem:
-        scratch = torch.empty(
-            (len(pl), nw.plane_bytes_per_pair(cfg, n_planes) // 4),
-            dtype=torch.int32)
+        scratch = torch.full((len(pl), plane_bytes), 0xA5, dtype=torch.uint8)
     got = _call(getattr(lib, f"aim_{cfg.algo}_forward"), args,
                 _records(len(pl), NRL, torch.int16), scratch, int(packed),
                 cfg.read_size, C, L, NRL, DS, *costs, int(cfg.backtrace),
@@ -133,7 +135,7 @@ def test_band_cu_matches_plain_version(lib, name):
         got, nwswg_records(cfg, p, t, pl, tl, packed))
 
 
-@pytest.mark.parametrize("name", GENASM_CASES)
+@pytest.mark.parametrize("name", GENASM_CASES + ["r112_k7_bt"])
 def test_genasm_cu_matches_plain_version(lib, name):
     cfg, p, t, pl, tl = genasm_case(name)
     args, packed = _tensors(p, t, pl, tl, cfg.read_size)
@@ -142,8 +144,8 @@ def test_genasm_cu_matches_plain_version(lib, name):
     in_smem = genasm.hist_in_smem(cfg)
     scratch = None
     if cfg.backtrace and not in_smem:
-        scratch = torch.empty((len(pl), genasm.hist_bytes_per_pair(cfg) // 4),
-                              dtype=torch.int32)
+        scratch = torch.full((len(pl), genasm.hist_bytes_per_pair(cfg) // 4),
+                             -1, dtype=torch.int32)
     got = _call(lib.aim_genasm_forward, args, _records(len(pl), R + 4),
                 scratch, R, k, Rp, int(cfg.backtrace), int(in_smem))
     np.testing.assert_array_equal(

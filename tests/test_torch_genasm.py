@@ -105,17 +105,54 @@ def test_gate_and_geometry_match_reference():
 
 
 def test_history_placement():
-    """The main config keeps its history in shared memory (5.4 KB a pair);
-    the k edge needs the global scratch; score-only keeps none."""
-    assert genasm.hist_bytes_per_pair(GENASM_MAIN) == 113 * 12 * 4
+    """The main config takes 16 lanes a pair (two pairs a warp) and keeps a
+    windowed history in shared memory (k+1 = 3 words a level, 1.4 KB a
+    pair); the k edge (81 rows) takes a warp a pair and needs the global
+    scratch; score-only keeps none."""
+    assert genasm.hist_bytes_per_pair(GENASM_MAIN) == 113 * 3 * 4
+    assert genasm.seg_lanes(GENASM_MAIN) == 16
+    assert genasm.pairs_per_warp(GENASM_MAIN) == 2
+    assert genasm.hist_windowed(GENASM_MAIN)
     assert genasm.hist_in_smem(GENASM_MAIN)
+    # per pair: 120 pattern + 120 text codes, then the history, to 16 B
+    assert genasm.warp_smem_bytes(GENASM_MAIN, True) == 2 * 1600
     edge = AlignConfig(algo="genasm", read_size=64, max_score=26,
                        backtrace=True)
+    assert genasm.seg_lanes(edge) == 0 and genasm.pairs_per_warp(edge) == 1
+    assert not genasm.hist_windowed(edge)
+    assert genasm.hist_bytes_per_pair(edge) == 65 * 81 * 4
     assert not genasm.hist_in_smem(edge)
     assert genasm.device_bytes_per_pair(edge) > \
         genasm.hist_bytes_per_pair(edge)
     assert genasm.device_bytes_per_pair(edge.replace(backtrace=False)) < \
         genasm.hist_bytes_per_pair(edge)
+
+
+def test_kernel_paths_over_the_gate():
+    """Every config the gate admits: DW <= 32 rows take the segmented path
+    (the smallest power-of-two segment >= DW), windowed exactly at k <= 6,
+    and a windowed history always fits in shared memory."""
+    seen = set()
+    for R in range(8, 1001, 8):
+        for k in range(0, 27):
+            cfg = AlignConfig(algo="genasm", read_size=R, max_score=k,
+                              backtrace=True)
+            if not genasm.vmem_fit_genasm(cfg):
+                continue
+            DW = genasm.geom(cfg)[3]
+            S = genasm.seg_lanes(cfg)
+            if DW > 32:
+                assert S == 0 and not genasm.hist_windowed(cfg)
+            else:
+                assert DW <= S < 2 * DW and S & (S - 1) == 0
+                assert genasm.hist_windowed(cfg) == (k <= genasm.WINDOW_MAX_K)
+            if genasm.hist_windowed(cfg):
+                assert genasm.hist_in_smem(cfg), (R, k)
+            seen.add((S > 0, genasm.hist_windowed(cfg),
+                      genasm.hist_in_smem(cfg)))
+    assert seen == {(True, True, True), (True, False, True),
+                    (True, False, False), (False, False, True),
+                    (False, False, False)}
 
 
 def test_cpu_wrapper_runs_plain_version_without_launch():

@@ -133,7 +133,7 @@ def _band_kernel(dev, cfg, p, t, pl, tl, packed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", NWSWG_CASES)
+@pytest.mark.parametrize("name", NWSWG_CASES + ["swg_r520_global"])
 def test_cuda_band_kernel_matches_reference(cuda_device, name):
     """K2/K3 records byte-equal to the plain version, flagged pairs too."""
     cfg, p, t, pl, tl, packed = nwswg_case(name)
@@ -204,13 +204,52 @@ def _k45(dev, mod, cfg, p, t, pl, tl, reference=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", GENASM_CASES)
+@pytest.mark.parametrize("name", GENASM_CASES + ["r112_k7_bt"])
 def test_cuda_genasm_matches_reference(cuda_device, name):
     """K4 records byte-equal to the plain version, overflow pairs too."""
     cfg, p, t, pl, tl = genasm_case(name)
     np.testing.assert_array_equal(
         _k45(cuda_device, genasm, cfg, p, t, pl, tl),
         _k45(cuda_device, genasm, cfg, p, t, pl, tl, reference=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,ppw,windowed", [
+    ("main_bt", 2, True), ("r16_k5_edges_bt", 4, True),
+    ("r112_k5_bt", 1, True), ("r24_k10_bt", 2, False),
+    ("r32_k12_bt", 1, False), ("r64_k26_bt", 1, False)])
+def test_cuda_genasm_path(cuda_device, name, ppw, windowed):
+    """K4's launch on the card: pairs a warp and the windowed history as
+    ops/genasm.py sizes them, at most 64 registers a thread and no spills
+    on the segmented path, and at least 8 blocks an SM there."""
+    cfg = genasm_case(name)[0]
+    info = genasm.kernel_info(cfg)
+    assert (info["pairs_per_warp"], bool(info["hist_windowed"])) == \
+        (ppw, windowed) == (genasm.pairs_per_warp(cfg),
+                            genasm.hist_windowed(cfg))
+    assert info["smem_block_bytes"] == \
+        genasm.WARPS * genasm.warp_smem_bytes(cfg, genasm.hist_in_smem(cfg))
+    if genasm.seg_lanes(cfg):
+        assert info["registers"] <= 64 and info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,ppw", [("swg_main_bt", 2), ("swg_l8", 4),
+                                      ("swg_l32", 1), ("swg_int16", 1),
+                                      ("swg_l128", 1)])
+def test_cuda_swg_path(cuda_device, name, ppw):
+    """K3's launch on the card: 32/L pairs a warp up to L = 32, shared
+    memory as ops/swg.py sizes it, at most 64 registers a thread and no
+    spills on the segmented path."""
+    cfg = nwswg_case(name)[0]
+    info = swg.kernel_info(cfg)
+    assert info["pairs_per_warp"] == ppw == swg.pairs_per_warp(cfg)
+    assert info["smem_block_bytes"] == \
+        nw.WARPS * swg.warp_smem_bytes(cfg, swg.planes_in_smem(cfg))
+    if ppw > 1 or nw.band_geometry(cfg)[1] == 32:
+        assert info["registers"] <= 64 and info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 8
 
 
 @pytest.mark.gpu

@@ -212,6 +212,29 @@ def test_wrapper_rejects_bad_inputs(algo, bad):
         fn(p, t, pl, tl, cfg=cfg, packed=False)
 
 
+def test_swg_kernel_layout():
+    """K3 takes 32/L pairs a warp up to L = 32 and keeps L-bit plane words:
+    two pairs a warp at the 100 bp config, 1,120 B of planes a pair; K2's
+    layout stays one pair a warp with 32-bit words."""
+    assert swg.pairs_per_warp(SWG_MAIN) == 2
+    assert swg.plane_bytes_per_pair(SWG_MAIN) == 112 * 5 * 2
+    assert swg.warp_smem_bytes(SWG_MAIN, True) == 2 * (224 + 1120)
+    assert swg.planes_in_smem(SWG_MAIN)
+    assert swg.plane_layout(SWG_MAIN) == (True, 1120)
+    assert swg.plane_bytes_per_pair(SWG_MAIN.replace(backtrace=False)) == 0
+    for name, L, ppw in (("swg_l8", 8, 4), ("swg_l32", 32, 1),
+                         ("swg_int16", 64, 1), ("swg_l128", 128, 1)):
+        cfg = nwswg_case(name)[0]
+        assert nw.band_geometry(cfg)[1] == L
+        assert swg.pairs_per_warp(cfg) == ppw
+        assert swg.plane_bytes_per_pair(cfg) == cfg.read_size * 5 * L // 8
+    big = nwswg_case("swg_r520_global")[0]
+    assert not swg.planes_in_smem(big)
+    assert kernels.forward_fn(big).device_bytes_per_pair == \
+        swg.device_bytes_per_pair(big) > 520 * 5 * 2
+    assert nw.plane_layout(NW_MAIN) == (True, 112 * 3 * 4)
+
+
 def test_plan_uses_the_serving_kernel_footprint():
     """The chunk cap takes the per-pair device bytes of the kernel that
     serves the config: global plane scratch where shared memory is short."""
@@ -219,7 +242,7 @@ def test_plan_uses_the_serving_kernel_footprint():
     small = derive_config("nw", 100, 0.01, backtrace=True)
     big = AlignConfig(algo="nw", read_size=1120, max_score=120, gap_i=1,
                       gap_d=1, mismatch=1, backtrace=True)
-    assert nw.planes_in_smem(small, 3) and not nw.planes_in_smem(big, 3)
+    assert nw.planes_in_smem(small) and not nw.planes_in_smem(big)
     assert kernels.forward_fn(big).device_bytes_per_pair == \
         nw.device_bytes_per_pair(big) > 50_000
     assert tapi._memory_batch_cap(big, cpu, 1 << 30) < \

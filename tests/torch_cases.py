@@ -104,7 +104,7 @@ NWSWG_CASES = ["nw_main_bt", "nw_main_nobt", "swg_main_bt", "swg_main_nobt",
                "swg_r40_unbal", "nw_packed", "swg_packed", "nw_acgtn",
                "swg_acgtn", "nw_flag_heavy", "swg_flag_heavy", "nw_edges",
                "swg_edges", "nw_ovf_check", "swg_ovf_check", "swg_int16",
-               "nw_l128"]
+               "nw_l128", "swg_l8", "swg_l32", "swg_l128", "swg_mixed"]
 
 EDGE_PAIRS = [("", ""), ("ACGT", ""), ("", "ACGTAC"), ("A", "A"),
               ("AC", "A"), ("ACG", "A"), ("A" * 100, "A" * 100),
@@ -186,7 +186,53 @@ def nwswg_case(name):
                           gap_d=1, mismatch=1, backtrace=True)
         pairs = random_pairs(seed=9, n=64, max_len=88, balanced=False)
         return (cfg, *pack(pairs, 96), False)
+    # K3's band widths past the 100 bp config's L = 16 (L = 64 is
+    # swg_int16): MAX_SCORE 2 gives L = 8 (four pairs a warp in the CUDA
+    # kernel), 10 gives L = 32, the int16 cells at 60 give L = 128
+    if name == "swg_l8":
+        return (SWG_MAIN.replace(max_score=2), *datagen.generate_pairs(
+            96, 100, 0.005, read_size=112, seed=6), False)
+    if name == "swg_l32":
+        return (SWG_MAIN.replace(max_score=10), *datagen.generate_pairs(
+            96, 100, 0.02, read_size=112, seed=7), False)
+    if name == "swg_l128":
+        cfg = AlignConfig(algo="swg", read_size=96, max_score=60, match=0,
+                          mismatch=3, gap_o=4, gap_e=1, variant="hbm",
+                          backtrace=True)
+        pairs = random_pairs(seed=10, n=64, max_len=88, balanced=False)
+        return (cfg, *pack(pairs, 96), False)
+    if name == "swg_r520_global":
+        # int16 cells at L = 16 past 48 KB of planes a block: the planes in
+        # the global scratch
+        cfg = AlignConfig(algo="swg", read_size=520, max_score=5, match=0,
+                          mismatch=3, gap_o=4, gap_e=1, variant="hbm",
+                          backtrace=True)
+        return (cfg, *datagen.generate_pairs(24, 500, 0.005, read_size=520,
+                                             seed=11), False)
+    if name == "swg_mixed":
+        # unlike neighbours in one warp: a normal pair next to a flagged
+        # one (1 % and 10 % errors interleaved) or an edge pair (empty
+        # sequences, full lengths), and 137 pairs, which leave the last
+        # warp part-empty
+        near = datagen.generate_pairs(64, 100, 0.01, read_size=112, seed=8)
+        far = datagen.generate_pairs(64, 100, 0.1, read_size=112, seed=9)
+        edges = pack(EDGE_PAIRS, SWG_MAIN.read_size)
+        return (SWG_MAIN, *interleave(near, far, edges), False)
     raise KeyError(name)
+
+
+def interleave(a, b, c):
+    """Rows of three (pats, txts, plens, tlens) batches of equal width,
+    alternating a[i] with c[i] while c lasts, then with b[i]; then the
+    rows of b that c displaced."""
+    na, nc = len(a[2]), len(c[2])
+    order = []
+    for i in range(na):
+        order.append((a, i))
+        order.append((c, i) if i < nc else (b, i))
+    order += [(b, i) for i in range(min(nc, len(b[2])))]
+    return tuple(np.stack([src[f][i] for src, i in order])
+                 for f in range(4))
 
 
 def nwswg_records(cfg, p, t, pl, tl, packed, reference=True):
@@ -204,7 +250,8 @@ GENASM_MAIN = derive_config("genasm", 100, 0.01, backtrace=True)
 
 GENASM_CASES = ["r32_k12_bt", "r32_k12_nobt", "r16_k5_edges_bt",
                 "r16_k5_edges_nobt", "main_bt", "main_nobt", "overflow_bt",
-                "overflow_nobt", "r64_k26_bt"]
+                "overflow_nobt", "r64_k26_bt", "r24_k10_bt", "r112_k5_bt",
+                "mixed_bt", "mixed_nobt"]
 
 GENASM_EDGES = [("", "ACG"), ("ACG", ""), ("", ""), ("A", "A"), ("A", "T"),
                 ("AC", "A"), ("A", "AC"), ("ACGT", "ACGT"), ("AAAA", "TTTT"),
@@ -240,6 +287,33 @@ def genasm_case(name):
                           backtrace=True)
         return (cfg, *pack(random_pairs(seed=7, n=64, max_len=60,
                                         balanced=False), 64))
+    # the CUDA kernel's paths by rows DW = (k+1) x words: 11 rows with the
+    # full history (16 lanes a pair); 24 rows with the windowed history
+    # (32 lanes); main_bt is 12 rows windowed, r32_k12 26 rows full,
+    # r64_k26 81 rows (one warp a pair)
+    if name == "r24_k10_bt":
+        cfg = AlignConfig(algo="genasm", read_size=24, max_score=10,
+                          backtrace=True)
+        return (cfg, *pack(random_pairs(seed=31, n=96, max_len=22,
+                                        balanced=False), 24))
+    if name == "r112_k5_bt":
+        return (GENASM_MAIN.replace(max_score=5),
+                *datagen.generate_pairs(48, 100, 0.03, read_size=112,
+                                        seed=5))
+    if name == "r112_k7_bt":
+        # 32 rows with the full history: the global scratch
+        return (GENASM_MAIN.replace(max_score=7),
+                *datagen.generate_pairs(24, 100, 0.04, read_size=112,
+                                        seed=6))
+    if name.startswith("mixed"):
+        # unlike neighbours in one warp: a normal pair next to an edge
+        # pair (empty sequences, overflow) or an overflowing one, walks of
+        # different lengths, and 147 pairs (the last warp part-empty)
+        main = datagen.generate_pairs(64, 100, 0.01, read_size=112, seed=3)
+        over = datagen.generate_pairs(64, 100, 0.05, read_size=112, seed=4)
+        edges = pack(GENASM_EDGES, 112)
+        rows = interleave(main, over, edges)
+        return (GENASM_MAIN.replace(backtrace=bt), *(a[:147] for a in rows))
     raise KeyError(name)
 
 

@@ -4,11 +4,17 @@
 // sources, not only their plain PyTorch versions.
 //
 // A warp is 32 threads and a std::barrier; the warp collectives the
-// kernels use (__syncwarp, __shfl_sync, __ballot_sync, __any_sync,
-// __reduce_min/max_sync) meet at that barrier.  A block has one barrier of
-// all its threads for __syncthreads and __syncthreads_or.  A thread that
-// returns drops out of both (the kernels return apart only where no
-// collective follows, as K1's walk on lane 0).  The test rewrites `extern __shared__` and the
+// kernels use (__syncwarp, __shfl_sync, __shfl_up_sync, __shfl_down_sync,
+// __shfl_xor_sync, __ballot_sync, __any_sync, __reduce_min/max_sync) meet
+// at that barrier.  The shuffles take CUDA's `width`: a warp of width-lane
+// segments, where a source outside the lane's segment returns the lane's
+// own value (and __shfl_sync reads its source lane modulo width).  The
+// barrier ignores the member mask, so a collective that not every thread
+// of the warp reaches deadlocks: the tests catch loops that are not
+// warp-uniform.  A block has one barrier of all its threads for
+// __syncthreads and __syncthreads_or.  A thread that returns drops out of
+// both (the kernels return apart only where no collective follows, as K1's
+// walk on lane 0).  The test rewrites `extern __shared__` and the
 // `<<<...>>>` launches textually; a launch runs its blocks a few at a time,
 // each with its own dynamic shared memory, filled with 0xAB so a read of an
 // unwritten byte shows.
@@ -27,7 +33,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x) alignas(x)
 
 struct shim_dim3 {
@@ -45,6 +51,22 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// no card to ask: zero attributes, one resident block
+struct cudaFuncAttributes {
+  int numRegs = 0;
+  size_t localSizeBytes = 0;
+};
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes *a, F) {
+  *a = cudaFuncAttributes{};
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int *n, F, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline const char *cudaGetErrorString(cudaError_t) { return "cpu shim"; }
 
 template <class A, class B>
@@ -134,17 +156,39 @@ void launch(K kern, unsigned blocks, unsigned threads, size_t smem_bytes,
 inline void __syncwarp(unsigned = 0xffffffffu) {
   shim::warp->bar.arrive_and_wait();
 }
+// every lane publishes v, then reads lane src (its own lane where src < 0)
 template <class T>
-inline T __shfl_sync(unsigned, T v, int src) {
+inline T shim_shfl(T v, int src) {
   uint64_t x = 0;
   std::memcpy(&x, &v, sizeof(T));
   shim::warp->slot[shim::lane()] = x;
   __syncwarp();
-  const uint64_t y = shim::warp->slot[src & 31];
+  const uint64_t y = shim::warp->slot[src < 0 ? shim::lane() : src];
   __syncwarp();
   T r;
   std::memcpy(&r, &y, sizeof(T));
   return r;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int base = shim::lane() & ~(width - 1);
+  return shim_shfl(v, base + (src & (width - 1)));
+}
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int l = shim::lane(), in = l & (width - 1);
+  return shim_shfl(v, in >= (int)delta ? l - (int)delta : -1);
+}
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int l = shim::lane(), in = l & (width - 1);
+  return shim_shfl(v, in + (int)delta < width ? l + (int)delta : -1);
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
+  const int l = shim::lane(), src = l ^ mask;
+  // a source in a later segment returns the lane's own value
+  return shim_shfl(v, src < (l & ~(width - 1)) + width ? src : -1);
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
   shim::warp->slot[shim::lane()] = pred != 0;
