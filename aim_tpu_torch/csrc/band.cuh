@@ -1,24 +1,26 @@
 // Shared machinery of the banded short-read kernels K2 (nw.cu) and K3
-// (swg.cu) for NVIDIA Hopper (sm_90a).
+// (swg.cu) for NVIDIA Hopper (sm_90a): the one-pair-a-warp helpers of
+// their wide paths (L = 64, 128), and what both paths share (BandParams,
+// sequence staging, run emission, the record epilogue, the launcher).
 //
 // Both replace a Pallas TPU kernel that lays the DP band of a pair over L
-// lanes, b = v - h + C (aim_tpu/ops/nw_pallas.py, swg_pallas.py).  Here one
-// warp owns one pair; its L lanes are spread over the warp's 32 threads,
-// LPT = max(1, L/32) lanes a thread, band lane b = lane + 32*j in slot j
-// (for L < 32 the threads past L compute values nothing reads).  Moving a
-// row by d lanes is a pair of warp shuffles; a truncated scan is log2 of
-// them.  Every read of another lane is masked to [0, L): a pair's records
-// depend on nothing but the pair, so no warp shares state with another.
+// lanes, b = v - h + C (aim_tpu/ops/nw_pallas.py, swg_pallas.py).  On the
+// wide paths one warp owns one pair; its L lanes are spread over the
+// warp's 32 threads, LPT = L/32 lanes a thread, band lane b = lane + 32*j
+// in slot j.  Moving a row by d lanes is a pair of warp shuffles; a
+// truncated scan is log2 of them.  Every read of another lane is masked to
+// [0, L): a pair's records depend on nothing but the pair, so no warp
+// shares state with another.  At L <= 32 both kernels hold 32/L pairs a
+// warp instead (segment.cuh).
 //
-// Per pair the kernels keep one bit a band lane a row for each code
+// Per pair the wide paths keep one bit a band lane a row for each code
 // plane (NW: 2 code bits + is-match; SWG: 4 code bits + is-match), as
-// 32-bit words built with __ballot_sync: R rows x planes x max(1, L/32)
-// words.  They sit in shared memory while the block's share fits in 48 KB
-// (1,344 B a pair for NW at the 100 bp config), else in a global scratch
-// the wrapper allocates.  The walk is sequential per pair: every thread of
-// the warp runs it on the same scalars (reads are broadcasts), the warp
-// together reads up to 32 rows of the is-match plane for a match run with
-// one ballot, and lane 0 writes the record.
+// 32-bit words built with __ballot_sync: R rows x planes x L/32 words.
+// They sit in shared memory while the block's share fits in 48 KB, else in
+// a global scratch the wrapper allocates.  The walk is sequential per
+// pair: every thread of the warp runs it on the same scalars (reads are
+// broadcasts), the warp together reads up to 32 rows of the is-match plane
+// for a match run with one ballot, and lane 0 writes the record.
 
 #pragma once
 
@@ -221,30 +223,30 @@ __device__ __forceinline__ void finish_record(int16_t *rec, int rc, bool flag,
   }
 }
 
-// Host side: validate, size shared memory and launch `kern` at the LPT its
-// L needs.  Returns cudaGetLastError() after the launch (0 on success).
-template <typename K1, typename K2, typename K4>
-inline int launch(BandParams &P, K1 k1, K2 k2, K4 k4, void *stream) {
-  if (P.n <= 0) return 0;
+// Host side: the argument checks of every band launch.
+inline bool band_args_ok(const BandParams &P) {
   const bool l_ok = P.L == 8 || P.L == 16 || P.L == 32 || P.L == 64 ||
                     P.L == 128;
-  if (!l_ok || P.R <= 0 || P.width <= 0 || P.C < 0 || 2 * P.C + 1 > P.L ||
-      P.NRL < 2 || P.NRL > P.L || P.DS < 0 ||
-      (P.backtrace && !P.planes_smem && P.scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  P.words = P.L > 32 ? P.L / 32 : 1;
+  return l_ok && P.R > 0 && P.width > 0 && P.C >= 0 && 2 * P.C + 1 <= P.L &&
+         P.NRL >= 2 && P.NRL <= P.L && P.DS >= 0 &&
+         !(P.backtrace && !P.planes_smem && P.scratch == nullptr);
+}
+
+// Host side of the wide paths: validate, size shared memory and launch
+// `k2` (L = 64) or `k4` (L = 128), one pair a warp.  Returns
+// cudaGetLastError() after the launch (0 on success).
+template <typename K2, typename K4>
+inline int launch_wide(BandParams &P, K2 k2, K4 k4, void *stream) {
+  if (P.n <= 0) return 0;
+  if (!band_args_ok(P) || P.L < 64) return (int)cudaErrorInvalidValue;
+  P.words = P.L / 32;
   P.seq_bytes = round16(P.R);
   P.warp_bytes = (int)warp_bytes(P, P.planes_smem != 0);
   const size_t smem = (size_t)P.warp_bytes * kWarps;
   const long blocks = (P.n + kWarps - 1) / kWarps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (P.L <= 32) {
-    e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    k1<<<(unsigned)blocks, 32 * kWarps, smem, s>>>(P);
-  } else if (P.L == 64) {
+  if (P.L == 64) {
     e = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -256,6 +258,30 @@ inline int launch(BandParams &P, K1 k1, K2 k2, K4 k4, void *stream) {
     k4<<<(unsigned)blocks, 32 * kWarps, smem, s>>>(P);
   }
   return (int)cudaGetLastError();
+}
+
+// What a kernel of 4-warp blocks runs at (the aim_*_info entry points): out
+// = {registers a thread, local (spill) bytes a thread, `smem` (dynamic
+// shared memory a block), resident blocks an SM, pairs a warp, 0}.
+template <typename K>
+inline int band_info(K kern, size_t smem, int pairs_per_warp, int *out) {
+  cudaFuncAttributes attr{};
+  int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                      32 * kWarps, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = pairs_per_warp;
+  out[5] = 0;
+  return 0;
 }
 
 }  // namespace aimband

@@ -23,12 +23,20 @@
 // (nwswg_pallas_long.py:256-311) are Mosaic's and do not carry over.
 //
 // Symbols.  Band position b at row h compares pattern symbol
-// j = b + h - C - 1 with text symbol h - 1, read as the reference reads its
-// padded rows: j < weff from the input (2-bit codes unpacked, or raw
-// bytes), weff <= j < lpad reads 0 (its padding to whole row blocks), any
-// other j reads -1, which no symbol equals.  Each thread keeps its E
-// pattern symbols of the current row in registers and slides them by one
-// position a row (one shuffle, one byte load on the last thread).
+// j = b + h - C - 1 with text symbol h - 1.  Only valid cells read them,
+// and those have 0 <= j < plen and h - 1 < tlen, so of the reference's
+// rules for its padded rows (j < weff from the input, 2-bit codes unpacked
+// or raw bytes; weff <= j < lpad reads 0; anything else -1) the -1 is
+// never reached.  The row loop reads no global memory: each warp keeps a
+// ring of pattern bytes and one of text bytes in shared memory, refilled
+// with 32 bytes of each every 32 rows from registers loaded one refill
+// ahead.  Each thread keeps its E pattern bytes in E/4 words, slid one byte
+// a row (one shuffle brings the next thread's first byte; the last thread
+// reads the ring); a row's mismatches are the window XORed with the text
+// byte in every byte, a nonzero byte's high bit set by one add.  A
+// thread's valid positions of a row form one interval (1 <= v <= upper,
+// p < B), so its E-bit masks come from two clamps and column 0 from one
+// compare.
 //
 // Code rows (the port's layout, global scratch the wrapper allocates):
 //   codes [n][R][P*bits/8]  row h-1: position b's code at bits bits*b..,
@@ -38,9 +46,10 @@
 //   ism   [n][R][P/8]       position b's is-match bit at bit b (NW: code M;
 //                           SWG: valid and choice M)
 //   meta  [n][2] int32      score, forward flag
-// A thread's E codes are contiguous bits; rows are written as whole 32-bit
-// words (threads whose bits share a word OR them together by shuffles).
-// Without backtrace no rows are written and K6 writes the record itself.
+// A thread's E codes are contiguous bits, stored straight from the thread
+// as whole bytes; the is-match bits at one plane (4 a thread) take one
+// shuffle to pair two threads into a byte.  Without backtrace no rows are
+// written and K6 writes the record itself.
 //
 // K7 walks one pair a warp from (tlen, plen) down, every thread on the
 // same scalars.  The nearest band position <= bb whose NW code is not D
@@ -55,11 +64,18 @@
 // tiers' finish_record writes another lane-0 grammar and is not used).
 //
 // What bounds it on this card: neither bytes nor tensor math.  A 4 kbp
-// pair reads ~8 KB of sequence and writes 48 bytes of code rows a text row
-// (~200 KB a pair for NW at one plane); the work is R dependent rows of a
-// few dozen integer operations and ~10 shuffles a thread, so K6 is latency
-// bound and relies on many warps in flight (a 4096-pair chunk is 1024
-// blocks of 4 warps).  K7 is a short sequential walk a pair.
+// pair reads ~2 KB of packed sequence and writes 48 bytes of code rows a
+// text row (~200 KB a pair for NW at one plane); the work is R dependent
+// rows of a few dozen integer operations and ~9 shuffles a thread.  One
+// warp alone took ~1,800 cycles a row in the first design (global symbol
+// reads, E-fold mask compares and 5 shuffles of stores in the chain), and
+// at 80 registers a 4096-pair chunk needed two waves.  So the row is kept
+// short (no global reads, interval masks, whole-byte stores) and planes 1
+// and 2 are held to 64 registers (__launch_bounds__ with 8 blocks an SM),
+// which fits a 4096-pair chunk (1,024 blocks) in one wave on 132 SMs (SWG
+// keeps its I row in shared memory for that).  A lone warp's row now takes
+// ~760 cycles; in one full wave the ~220 instructions of an NW row bound it
+// (tools/row_profile.py reads both).  K7 is a short sequential walk a pair.
 
 #include <climits>
 
@@ -88,12 +104,13 @@ struct LongParams {
   int mat, go, ge, ms;       // SWG costs
 };
 
-// Pattern or text symbol j of a pair as the reference reads its padded
-// rows.
-__device__ __forceinline__ int sym_at(const uint8_t *row, const LongParams &P,
+// Pattern or text symbol j of a pair as a valid cell reads it: j < weff
+// from the input (2-bit codes unpacked, or raw bytes), anything else 0.  (The
+// reference reads -1 below 0 and past lpad, but no valid cell reaches
+// there: valid cells have 0 <= j < plen and text rows h - 1 < tlen.)
+__device__ __forceinline__ int sym_in(const uint8_t *row, const LongParams &P,
                                       int j) {
-  if (j < 0 || j >= P.lpad) return -1;
-  if (j >= P.weff) return 0;
+  if (j < 0 || j >= P.weff) return 0;
   if (P.packed) return (row[j >> 2] >> (2 * (j & 3))) & 3;
   return row[j];
 }
@@ -112,18 +129,18 @@ template <int E>
 __device__ __forceinline__ void band_min_scan(int (&z)[E], int lane) {
 #pragma unroll
   for (int e = 1; e < E; ++e) z[e] = min(z[e], z[e - 1]);
+  // a lane below o reads its own total, which min leaves unchanged
   int tot = z[E - 1];
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_sync(kFull, tot, lane - o);
-    if (lane >= o) tot = min(tot, t);
-  }
-  int excl = __shfl_sync(kFull, tot, lane - 1);
+  for (int o = 1; o < 32; o <<= 1)
+    tot = min(tot, __shfl_up_sync(kFull, tot, o));
+  int excl = __shfl_up_sync(kFull, tot, 1);
   if (lane == 0) excl = INT_MAX;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int m = min(z[e], excl);
-    z[e] = lane * E + e == 127 ? m : min(m, kInf);
+    // position 127 is the thread's last one on lane 128/E - 1
+    z[e] = e == E - 1 && lane == 128 / E - 1 ? m : min(m, kInf);
   }
 }
 
@@ -142,54 +159,138 @@ __device__ __forceinline__ int from_left(int last, int lane, bool seam) {
   return seam ? min(v, kSeamCap) : v;
 }
 
-// Store a row of NB bits a thread (thread t's bits at t*NB of the row).
+// Where thread `lane` stores its NB bits of a row (thread t's bits sit at
+// bit t*NB of the row): its whole bytes, or at NB = 4 the byte it shares
+// with the next thread.
 template <int NB>
-__device__ __forceinline__ void store_bits(
-    uint8_t *row, const uint32_t (&w)[NB >= 32 ? NB / 32 : 1], int lane) {
-  uint32_t *r32 = reinterpret_cast<uint32_t *>(row);
-  if constexpr (NB >= 32) {
-#pragma unroll
-    for (int k = 0; k < NB / 32; ++k) r32[lane * (NB / 32) + k] = w[k];
+__device__ __forceinline__ int row_offset(int lane) {
+  return NB == 4 ? lane >> 1 : lane * (NB / 8);
+}
+
+// Store a thread's NB bits of a row at `at` (the row + row_offset): whole
+// bytes straight from each thread; at NB = 4 one shuffle pairs two threads
+// into a byte.
+template <int NB>
+__device__ __forceinline__ void store_row(
+    uint8_t *at, const uint32_t (&w)[NB >= 32 ? NB / 32 : 1], int lane) {
+  if constexpr (NB == 4) {
+    const uint32_t v = w[0] | (__shfl_down_sync(kFull, w[0], 1) << 4);
+    if ((lane & 1) == 0) *at = (uint8_t)v;
+  } else if constexpr (NB == 8) {
+    *at = (uint8_t)w[0];
+  } else if constexpr (NB == 16) {
+    *reinterpret_cast<uint16_t *>(at) = (uint16_t)w[0];
   } else {
-    constexpr int G = 32 / NB;
-    uint32_t v = w[0] << ((lane % G) * NB);
 #pragma unroll
-    for (int o = 1; o < G; o <<= 1) v |= __shfl_sync(kFull, v, lane ^ o);
-    if (lane % G == 0) r32[lane / G] = v;
+    for (int k = 0; k < NB / 32; ++k)
+      reinterpret_cast<uint32_t *>(at)[k] = w[k];
   }
+}
+
+// Bits 0, 2, 4, .. 2k of w packed into bits 0 .. k (k < 16).
+__device__ __forceinline__ uint32_t even_bits(uint32_t w) {
+  w &= 0x55555555u;
+  w = (w | (w >> 1)) & 0x33333333u;
+  w = (w | (w >> 2)) & 0x0f0f0f0fu;
+  w = (w | (w >> 4)) & 0x00ff00ffu;
+  return (w | (w >> 8)) & 0x0000ffffu;
+}
+
+// Bits lo..hi of a word, both clamped to [0, top]; 0 when empty.
+__device__ __forceinline__ uint32_t span_bits(int lo, int hi, int top) {
+  lo = max(lo, 0);
+  hi = min(hi, top);
+  return lo > hi ? 0u : (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo);
+}
+
+// The symbol ring of one pair (shared memory): pattern symbol j as a byte
+// at ring[(j + C + 1) & (64E - 1)], text symbol t at text[t & 63].  Row 1's
+// windows read u = 1 .. NP; after row h the last thread reads u = NP + h
+// and every thread text byte h.  32 new bytes of each are written every 32
+// rows, which 64E >= NP + 64 bytes of ring leave room for.
+constexpr int kRefill = 32;
+
+// The E pattern bytes u0 .. u0 + E - 1 of the ring as E/4 words (byte e of
+// word e/4), read as words and funnel-shifted into place.
+template <int E>
+__device__ __forceinline__ void window_load(uint32_t (&win)[E / 4],
+                                            const uint32_t *ring, int u0) {
+  constexpr int kWords = 16 * E;  // ring words
+  const int s = u0 & (4 * kWords - 1);
+  const int wi = s >> 2, sh = 8 * (s & 3);
+  uint32_t w = ring[wi];
+#pragma unroll
+  for (int k = 0; k < E / 4; ++k) {
+    const uint32_t w2 = ring[(wi + k + 1) & (kWords - 1)];
+    win[k] = __funnelshift_r(w, w2, sh);
+    w = w2;
+  }
+}
+
+// 1 where byte e of the window differs from the text byte, from nz: the
+// window XOR the text byte in every byte, with each nonzero byte's high bit
+// set and the rest cleared.
+template <int E>
+__device__ __forceinline__ int mismatch_at(const uint32_t (&nz)[E / 4],
+                                           int e) {
+  return (nz[e >> 2] >> (8 * (e & 3) + 7)) & 1;
 }
 
 // ---------------------------------------------------------------- K6 ----
 
 template <int E, bool kSwg>
-__global__ void __launch_bounds__(32 * kPairs) fwd_kernel(const LongParams P) {
+__global__ void __launch_bounds__(32 * kPairs, E <= 8 ? 8 : 1)
+    fwd_kernel(const LongParams P) {
+  extern __shared__ __align__(16) unsigned char smem[];
   constexpr int CB = kSwg ? 4 : 2;                 // code bits a position
   constexpr int CW = (E * CB) >= 32 ? E * CB / 32 : 1;
   constexpr int IW = E >= 32 ? E / 32 : 1;
+  constexpr int kRing = 64 * E;                    // pattern ring bytes
   const int lane = threadIdx.x & 31;
-  const long pair = (long)blockIdx.x * kPairs + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const long pair = (long)blockIdx.x * kPairs + warp;
   if (pair >= P.n) return;  // warp-uniform
-  const uint8_t *prow = P.pats + pair * P.width;
-  const uint8_t *trow = P.txts + pair * P.width;
   const int R = P.R, C = P.C, B = 2 * C + 1, NP = P.NP;
   const int plen = P.plens[pair], tlen = P.tlens[pair];
-  const int kend = plen - tlen;
   const bool aliased = plen == tlen + 1;
   const int p0 = lane * E;
   const bool seam_r = ((p0 + E) & 127) == 0;
   const bool seam_l = p0 > 0 && (p0 & 127) == 0;
-  const int kc = kend + C;
-  const bool hit_in = kc >= 0 && kc < B;
   const int hmax = min(tlen, R);
-  uint8_t *crows = P.codes + pair * (long)R * P.cbytes;
-  uint8_t *irows = P.ism + pair * (long)R * P.ibytes;
+  // this row's code and is-match bytes of the thread: NW advances two
+  // pointers a row; SWG, short of registers, computes them from the row's
+  // index (pair * R + h - 1 < 2^31, which the host checks)
+  const int coff = row_offset<E * (kSwg ? 4 : 2)>(lane);
+  const int ioff = row_offset<E>(lane);
+  uint8_t *crow = P.codes + pair * (long)R * P.cbytes + coff;
+  uint8_t *irow = P.ism + pair * (long)R * P.ibytes + ioff;
+  const unsigned rix0 = (unsigned)(pair * R) - 1u;
 
-  int win[E];  // pattern symbol of position p0 + e at the current row
-#pragma unroll
-  for (int e = 0; e < E; ++e) win[e] = sym_at(prow, P, p0 + e - C);
+  // ---- the symbol ring: pattern u in [0, NP + 32), text t in [0, 32);
+  // the next 32 of each wait in registers, one refill ahead
+  uint8_t *ring = smem + (size_t)warp * (kRing + 64 + (kSwg ? 128 * E : 0));
+  uint8_t *text = ring + kRing;
+  // SWG: the I row, position e of the thread at pis[e * 32 + lane] (shared
+  // memory in place of E registers, which the row's D scan needs)
+  int *pis = reinterpret_cast<int *>(text + 64);
+  const uint32_t *ring32 = reinterpret_cast<const uint32_t *>(ring);
+  const uint8_t *prow = P.pats + pair * P.width;
+  const uint8_t *trow = P.txts + pair * P.width;
+  for (int u = lane; u < NP + kRefill; u += 32)
+    ring[u] = (uint8_t)sym_in(prow, P, u - C - 1);
+  text[lane] = (uint8_t)sym_in(trow, P, lane);
+  // pattern byte | text byte << 8
+  int next = sym_in(prow, P, NP + kRefill + lane - C - 1) |
+             sym_in(trow, P, kRefill + lane) << 8;
+  __syncwarp();
+  // the thread's pattern window at row 1 (positions p0 .. p0 + E - 1), slid
+  // one byte a row after that, and row 1's text byte
+  uint32_t win[E / 4];
+  window_load<E>(win, ring32, p0 + 1);
+  int tsym = text[0];
 
   // row 0
-  int pm[E], pi[E];
+  int pm[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int p = p0 + e, v0 = p - C;
@@ -198,7 +299,6 @@ __global__ void __launch_bounds__(32 * kPairs) fwd_kernel(const LongParams P) {
       int r = (v0 >= 0 && v0 <= plen && inb) ? v0 * P.gd : kInf;
       if (aliased && v0 == plen && inb && v0 >= 0) r = P.gi;
       pm[e] = r;
-      pi[e] = 0;
     } else {
       const bool ok = v0 >= 0 && v0 <= plen && inb;
       int d0 = v0 == 0 ? P.ms : P.go + v0 * P.ge;
@@ -209,143 +309,239 @@ __global__ void __launch_bounds__(32 * kPairs) fwd_kernel(const LongParams P) {
         m0 = P.go + P.ge;
       }
       pm[e] = ok ? m0 : kInf;
-      pi[e] = ok ? i0 : kInf;
+      pis[e * 32 + lane] = ok ? i0 : kInf;
     }
   }
 
-  int score = 0;
   bool ovf = false;
-  const int upper = min(plen, tlen + C);
+  // valid cells: 1 <= v = p + h - C <= hiv and p < B, so the thread's
+  // valid e form one interval; column 0 (v == 0) is the position below it
+  const int hiv = kSwg ? plen : min(plen, tlen + C);
+  const int etop = min(E - 1, B - 1 - p0);
+  const int gi = P.gi, gd = P.gd, x = P.x;  // NW costs (SWG's read from P)
+  // NW rows up to hsafe cannot hold a valid cell past int16: with costs >=
+  // 0 every valid cell is at most the diagonal path's cost, max(gi, gd, x)
+  // * (max(h, v) + 1) with v <= h + C, so the range check starts after it
+  const int hsafe = gi >= 0 && gd >= 0 && x >= 0
+                        ? 32767 / max(1, max(gi, max(gd, x))) - C - 2
+                        : 0;
   const int margin = P.go + P.ge + max(P.x, max(abs(P.mat), P.ge));
+  const int db2 = aliased ? kInf : P.ms;  // SWG column 0's D from row 2
+  // The next row's window and text byte after row h's, after a refill every
+  // 32 rows.  NW advances them at the top of row h, where the shuffle and
+  // loads hide behind the row's cells; SWG, short of registers for both
+  // windows, at its end.
+  auto next_symbols = [&](int h) {
+    if (h % kRefill == 0) {  // warp-uniform
+      ring[(NP + h + lane) & (kRing - 1)] = (uint8_t)next;
+      text[(h + lane) & 63] = (uint8_t)(next >> 8);
+      const long row = ((long)blockIdx.x * kPairs + warp) * P.width;
+      next = sym_in(P.pats + row, P, NP + h + kRefill + lane - C - 1) |
+             sym_in(P.txts + row, P, h + kRefill + lane) << 8;
+      __syncwarp();
+    }
+    // positions p0 + 1 .. of this window, then the byte of the next
+    // thread's first position (the last thread's: pattern u = NP + h)
+    const uint32_t nb = __shfl_down_sync(kFull, win[0], 1);
+    const uint32_t last =
+        lane == 31 ? (uint32_t)ring[(NP + h) & (kRing - 1)] : nb & 0xffu;
+#pragma unroll
+    for (int k = 0; k + 1 < E / 4; ++k)
+      win[k] = __funnelshift_r(win[k], win[k + 1], 8);
+    win[E / 4 - 1] = (win[E / 4 - 1] >> 8) | (last << 24);
+    tsym = text[h & 63];
+  };
   for (int h = 1; h <= hmax; ++h) {
-    if (h > 1) {  // slide the pattern window by one position
-      const int nxt = __shfl_sync(kFull, win[0], lane + 1);
+    const uint32_t vmask = span_bits(C + 1 - h - p0, hiv + C - h - p0, etop);
+    const int e0 = C - h - p0;
+    const uint32_t cmask = (unsigned)e0 < (unsigned)E ? 1u << e0 : 0u;
+    const uint32_t lmask = vmask | cmask;
+    uint32_t nz[E / 4];
+    {
+      const uint32_t tt = (uint32_t)tsym * 0x01010101u;
 #pragma unroll
-      for (int e = 0; e + 1 < E; ++e) win[e] = win[e + 1];
-      win[E - 1] = lane == 31 ? sym_at(prow, P, NP + h - C - 2) : nxt;
+      for (int k = 0; k < E / 4; ++k) {
+        const uint32_t d = win[k] ^ tt;
+        nz[k] = (((d & 0x7f7f7f7fu) + 0x7f7f7f7fu) | d) & 0x80808080u;
+      }
     }
-    const int tsym = sym_at(trow, P, h - 1);
-    uint32_t vmask = 0, cmask = 0;
+    if constexpr (!kSwg) next_symbols(h);
+    // SWG: the same as one E-bit word (bits 7, 15, 23, 31 of each nz word
+    // moved to 4k .. 4k + 3 by one multiply), one register in place of E/4
+    uint32_t mm = 0;
+    if constexpr (kSwg) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int p = p0 + e, v = p + h - C;
-      const bool inb = p < B;
-      const bool ok = v >= 1 && (kSwg ? v <= plen : v <= upper) && inb;
-      vmask |= (uint32_t)ok << e;
-      cmask |= (uint32_t)(v == 0 && inb) << e;
+      for (int k = 0; k < E / 4; ++k)
+        mm |= ((nz[k] * 0x00204081u) >> 28) << (4 * k);
     }
-    int cur[E];
+    // ---- row cells
     uint32_t cw[CW] = {}, iw[IW] = {};
     if (!kSwg) {
-      const int gi = P.gi, gd = P.gd, x = P.x;
+      int cur[E];
       const int rn = from_right(pm[0], lane, seam_r);
-      int insv[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        insv[e] = (e + 1 < E ? pm[e + 1] : rn) + gi;
-        const bool valid = (vmask >> e) & 1;
-        int z = valid ? min(insv[e], pm[e] + (win[e] != tsym ? x : 0))
-                      : kInf;
-        if ((cmask >> e) & 1) z = h * gi;
+        const int ins = (e + 1 < E ? pm[e + 1] : rn) + gi;
+        const int own = min(ins, pm[e] + mismatch_at<E>(nz, e) * x);
+        const int z = (vmask >> e) & 1 ? own : kInf;
         cur[e] = z - (p0 + e) * gd;
+      }
+      if (h <= C) {  // warp-uniform: column 0 (v == 0) is in the band
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if ((cmask >> e) & 1) cur[e] = h * gi - (p0 + e) * gd;
       }
       band_min_scan(cur, lane);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const bool live = ((vmask | cmask) >> e) & 1;
-        cur[e] = live ? cur[e] + (p0 + e) * gd : kInf;
-        if (((vmask >> e) & 1) && abs(cur[e]) > 32767) ovf = true;
+      for (int e = 0; e < E; ++e)
+        cur[e] = (lmask >> e) & 1 ? cur[e] + (p0 + e) * gd : kInf;
+      if (h > hsafe) {  // warp-uniform
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (((vmask >> e) & 1) && abs(cur[e]) > 32767) ovf = true;
       }
+      // ---- codes
       if (P.backtrace) {
         const int ln = from_left(cur[E - 1], lane, seam_l);
 #pragma unroll
         for (int e = 0; e < E; ++e) {
+          // priority D, I, X, else M (D 0, I 1, M 2, X 3), without branches
           const int left = e > 0 ? cur[e - 1] : ln;
-          const int code = cur[e] == left + gd  ? kCD
-                         : cur[e] == insv[e]    ? kCI
-                         : cur[e] == pm[e] + x  ? kCX : kCM;
-          cw[(2 * e) / 32] |= (uint32_t)code << ((2 * e) % 32);
-          iw[e / 32] |= (uint32_t)(code == kCM) << (e % 32);
+          const int ins = (e + 1 < E ? pm[e + 1] : rn) + gi;
+          const bool is_d = cur[e] == left + gd;
+          const bool is_i = cur[e] == ins;
+          const bool is_x = cur[e] == pm[e] + x;
+          const uint32_t code = is_d ? 0u : is_i ? 1u : is_x ? 3u : 2u;
+          cw[(2 * e) / 32] |= code << ((2 * e) % 32);
+        }
+        // is-match: code M (bits 10), position e at bit e
+#pragma unroll
+        for (int k = 0; k < CW; ++k) {
+          const uint32_t m = even_bits((cw[k] >> 1) & ~cw[k]);
+          iw[k / 2] |= m << (16 * (k & 1));
         }
       }
+#pragma unroll
+      for (int e = 0; e < E; ++e) pm[e] = cur[e];
     } else {
       const int go = P.go, ge = P.ge, mat = P.mat, mis = P.x;
       const int mb = go + h * ge;
-      const int db = (aliased && h >= 2) ? kInf : P.ms;
+      const int db = h >= 2 ? db2 : P.ms;
       const int rnm = from_right(pm[0], lane, seam_r);
-      const int rni = from_right(pi[0], lane, seam_r);
-      uint32_t iopen = 0;
-      int c[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {  // ascending: pi[e+1] is still old
-        const bool valid = (vmask >> e) & 1;
-        const int iov = (e + 1 < E ? pm[e + 1] : rnm) + go + ge;
-        int ic = min(iov, (e + 1 < E ? pi[e + 1] : rni) + ge);
-        ic = valid ? ic : kInf;
-        if ((cmask >> e) & 1) ic = mb;
-        iopen |= (uint32_t)(ic == iov) << e;
-        pi[e] = ic;
-        c[e] = valid ? min(pm[e] + (win[e] != tsym ? mis : mat), ic) : kInf;
+      // the previous row's I, this thread's E and the next thread's first
+      int *my = pis + lane;
+      auto i_at = [&](int e) { return my[e * 32]; };
+      auto i_set = [&](int e, int v) { my[e * 32] = v; };
+      const int rni = from_right(i_at(0), lane, seam_r);
+      // the diagonal term c of the thread's last position first: the next
+      // thread's D chain reads it; then, ascending (pm[e+1] and I at e+1
+      // still the previous row's), I, c and the D chain's input z.  c is
+      // recomputed after the scan instead of kept, and I goes back to
+      // shared memory (registers).
+      int c;
+      {
+        const int iov = rnm + go + ge;
+        int ic = (vmask >> (E - 1)) & 1 ? min(iov, rni + ge) : kInf;
+        if ((cmask >> (E - 1)) & 1) ic = mb;
+        c = (vmask >> (E - 1)) & 1
+                ? min(pm[E - 1] + ((mm >> (E - 1)) & 1 ? mis : mat), ic)
+                : kInf;
       }
-      const int lnc = from_left(c[E - 1], lane, seam_l);
+      const int lnc = from_left(c, lane, seam_l);
+      uint32_t iopen = 0;
       int d[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const int p = p0 + e, v = p + h - C;
-        const bool live = ((vmask | cmask) >> e) & 1;
+        const bool valid = (vmask >> e) & 1;
+        const int iov = (e + 1 < E ? pm[e + 1] : rnm) + go + ge;
+        int ic = min(iov, (e + 1 < E ? i_at(e + 1) : rni) + ge);
+        ic = valid ? ic : kInf;
+        if ((cmask >> e) & 1) ic = mb;
+        iopen |= (uint32_t)(ic == iov) << e;
+        i_set(e, ic);  // position e + 1 still holds the previous row's
         // M at p - 1 where that cell is column 0, else INF
         int ml = (p >= 1 && p - 1 + h - C == 0 && p - 1 < B) ? mb : kInf;
         if (e == 0 && seam_l) ml = min(ml, kSeamCap);
-        const int left = e > 0 ? c[e - 1] : lnc;
+        const int left = e > 0 ? c : lnc;  // c of position p - 1
         int z = ((cmask >> e) & 1) ? db
               : v == 1 ? ml + go + ge : left + go + ge;
-        z = live ? z : kInf;
+        z = (lmask >> e) & 1 ? z : kInf;
         d[e] = z - p * ge;
+        c = valid ? min(pm[e] + ((mm >> e) & 1 ? mis : mat), ic) : kInf;
       }
       band_min_scan(d, lane);
+      // M = min(c, D), the codes, and pm <- M position by position
+      // (ascending: the D-opened test reads M at p - 1; position 0's, from
+      // the previous thread, after the loop)
+      int d0 = 0, mleft = 0;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const bool live = ((vmask | cmask) >> e) & 1;
-        d[e] = live ? d[e] + (p0 + e) * ge : kInf;
-        int m = min(c[e], d[e]);
+        const bool valid = (vmask >> e) & 1;
+        const bool live = (lmask >> e) & 1;
+        const int ie = i_at(e);  // this row's I, stored above
+        const int de = live ? d[e] + (p0 + e) * ge : kInf;
+        const int ce =
+            valid ? min(pm[e] + ((mm >> e) & 1 ? mis : mat), ie) : kInf;
+        int m = min(ce, de);
         if ((cmask >> e) & 1) m = mb;
-        cur[e] = live ? m : kInf;
-        if ((vmask >> e) & 1) {
-          const int mx = max(abs(cur[e]), max(abs(pi[e]), abs(d[e])));
+        m = live ? m : kInf;
+        if (valid) {
+          const int mx = max(abs(m), max(abs(ie), abs(de)));
           if (mx > 32767 - margin && mx < kInf / 2) ovf = true;
         }
-      }
-      if (P.backtrace) {
-        const int lnm = from_left(cur[E - 1], lane, seam_l);
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const bool valid = (vmask >> e) & 1;
-          const int m = cur[e];
-          const int choice = m == d[e] ? kCD
-                           : m == pi[e] ? kCI
-                           : m == pm[e] + mat ? kCM : kCX;
-          const int dop = d[e] == (e > 0 ? cur[e - 1] : lnm) + go + ge;
-          const int code =
-              valid ? choice | (dop << 2) | (int)(((iopen >> e) & 1) << 3)
-                    : kCM;
-          cw[(4 * e) / 32] |= (uint32_t)code << ((4 * e) % 32);
-          iw[e / 32] |= (uint32_t)(valid && (code & 3) == kCM) << (e % 32);
+        if (P.backtrace) {
+          // the M choice, priority D, I, M, else X (D 0, I 1, M 2, X 3),
+          // without branches; CH_M where the cell is not valid
+          const bool is_d = m == de;
+          const bool is_i = m == ie;
+          const bool is_m = m == pm[e] + mat;
+          const uint32_t b1 = !is_d && !is_i;
+          const uint32_t b0 = !is_d && (is_i || !is_m);
+          const uint32_t dop = e > 0 && de == mleft + go + ge;
+          const uint32_t code = valid ? b0 | b1 << 1 | dop << 2 |
+                                            ((iopen >> e) & 1) << 3
+                                      : (uint32_t)kCM;
+          cw[(4 * e) / 32] |= code << ((4 * e) % 32);
+          iw[e / 32] |= (uint32_t)(valid && b1 && !b0) << (e % 32);
         }
+        if (e == 0) d0 = de;
+        mleft = m;
+        pm[e] = m;
+      }
+      if (P.backtrace) {  // position 0's D-opened bit
+        const int lnm = from_left(mleft, lane, seam_l);
+        if ((vmask & 1) && d0 == lnm + go + ge) cw[0] |= 4u;
       }
     }
     if (P.backtrace) {
-      store_bits<E * CB>(crows + (long)(h - 1) * P.cbytes, cw, lane);
-      store_bits<E>(irows + (long)(h - 1) * P.ibytes, iw, lane);
+      if constexpr (kSwg) {
+        const unsigned rix = rix0 + (unsigned)h;
+        crow = P.codes + (unsigned long long)rix * (unsigned)P.cbytes + coff;
+        irow = P.ism + (unsigned long long)rix * (unsigned)P.ibytes + ioff;
+      }
+      store_row<E * CB>(crow, cw, lane);
+      store_row<E>(irow, iw, lane);
+      if constexpr (!kSwg) {
+        crow += P.cbytes;
+        irow += P.ibytes;
+      }
     }
-    if (h == tlen && hit_in) {  // warp-uniform
-      int val = 0;
+    if constexpr (kSwg) next_symbols(h);
+    // ---- row end
+  }
+  // score: the cell at band position kc of row tlen, which pm holds once
+  // the pair's rows are done
+  const int kend = plen - tlen;
+  const int kc = kend + C;
+  const bool hit_in = kc >= 0 && kc < B;
+  int score = 0;
+  if (tlen >= 1 && tlen <= R && hit_in) {  // warp-uniform
+    int val = 0;
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        if (p0 + e == kc) val = cur[e];
-      score = __shfl_sync(kFull, val, kc / E);
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) pm[e] = cur[e];
+    for (int e = 0; e < E; ++e)
+      if (p0 + e == kc) val = pm[e];
+    score = __shfl_sync(kFull, val, kc / E);
   }
   ovf = __any_sync(kFull, ovf);
 
@@ -531,12 +727,27 @@ __global__ void __launch_bounds__(32 * kPairs)
 
 using Kern = void (*)(const LongParams);
 
-int launch_long(Kern k, const LongParams &P, void *stream) {
+int launch_long(Kern k, const LongParams &P, size_t smem, void *stream) {
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   const long blocks = (P.n + kPairs - 1) / kPairs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  k<<<(unsigned)blocks, 32 * kPairs, 0, s>>>(P);
+  k<<<(unsigned)blocks, 32 * kPairs, smem, s>>>(P);
   return (int)cudaGetLastError();
+}
+
+// K6 at `planes` (NW or SWG), and its dynamic shared memory a block: each
+// warp's symbol ring (64 * E pattern bytes, 64 text bytes) and, for SWG,
+// its I row (E ints a thread).
+Kern fwd_kernel_for(int planes, bool swg, size_t *smem) {
+  const int E = 4 * planes;
+  *smem = (size_t)kPairs * (64 * E + 64 + (swg ? 128 * E : 0));
+  switch (planes) {
+    case 1: return swg ? fwd_kernel<4, true> : fwd_kernel<4, false>;
+    case 2: return swg ? fwd_kernel<8, true> : fwd_kernel<8, false>;
+    case 4: return swg ? fwd_kernel<16, true> : fwd_kernel<16, false>;
+    case 8: return swg ? fwd_kernel<32, true> : fwd_kernel<32, false>;
+  }
+  return nullptr;
 }
 
 bool planes_ok(int planes) {
@@ -562,7 +773,7 @@ int aim_nwswg_long_forward(const void *pats, const void *txts,
   if (n <= 0) return 0;
   if (!planes_ok(planes) || !nrl_ok(NRL) || R <= 0 || width <= 0 ||
       weff < 0 || lpad < R || (backtrace && (!codes || !ism)) ||
-      (!backtrace && !rec))
+      (!backtrace && !rec) || (double)n * R >= 2147483648.0)
     return (int)cudaErrorInvalidValue;
   LongParams P{};
   P.pats = static_cast<const uint8_t *>(pats);
@@ -592,14 +803,9 @@ int aim_nwswg_long_forward(const void *pats, const void *txts,
   P.go = go;
   P.ge = ge;
   P.ms = ms;
-  Kern k = nullptr;
-  switch (planes) {
-    case 1: k = swg ? fwd_kernel<4, true> : fwd_kernel<4, false>; break;
-    case 2: k = swg ? fwd_kernel<8, true> : fwd_kernel<8, false>; break;
-    case 4: k = swg ? fwd_kernel<16, true> : fwd_kernel<16, false>; break;
-    case 8: k = swg ? fwd_kernel<32, true> : fwd_kernel<32, false>; break;
-  }
-  return launch_long(k, P, stream);
+  size_t smem;
+  Kern k = fwd_kernel_for(planes, swg != 0, &smem);
+  return launch_long(k, P, smem, stream);
 }
 
 // Launches K7 on `stream`: the records from K6's code rows and meta.
@@ -628,8 +834,18 @@ int aim_nwswg_long_walk(const void *codes, const void *ism, const void *meta,
   P.it_cap = swg ? 3 * R + 4 : 2 * R + 2;
   P.cbytes = P.NP * (swg ? 4 : 2) / 8;
   P.ibytes = P.NP / 8;
-  return launch_long(swg ? walk_kernel<true> : walk_kernel<false>, P,
+  return launch_long(swg ? walk_kernel<true> : walk_kernel<false>, P, 0,
                      stream);
+}
+
+// What K6 runs at `planes` (NW or SWG): out = {registers a thread, local
+// (spill) bytes a thread, dynamic shared memory a block, resident blocks an
+// SM, pairs a warp, 0}.  Returns a cudaError_t (0 on success).
+int aim_nwswg_long_info(int planes, int swg, int *out) {
+  if (!planes_ok(planes)) return (int)cudaErrorInvalidValue;
+  size_t smem;
+  Kern k = fwd_kernel_for(planes, swg != 0, &smem);
+  return band_info(k, smem, 1, out);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Segmented band helpers for K3 (swg.cu) at band widths L <= 32, for NVIDIA
-// Hopper (sm_90a).
+// Segmented band helpers for K2 (nw.cu) and K3 (swg.cu) at band widths
+// L <= 32, for NVIDIA Hopper (sm_90a).
 //
 // A warp holds 32/L pairs, one band lane a thread: band lane b of a pair is
 // lane b of its L-lane segment.  Moving a row by d lanes is one
@@ -11,7 +11,7 @@
 // warp-uniform: the pairs of a warp step together to the warp's longest
 // text, and the walk loops while any segment still walks.
 //
-// K2 (nw.cu) keeps the one-pair-a-warp helpers of band.cuh.
+// L = 64 and 128 keep one pair a warp (band.cuh's helpers).
 
 #pragma once
 
@@ -115,22 +115,38 @@ __device__ __forceinline__ int last_set_in(unsigned w, int lo, int hi) {
   return m ? 31 - __clz((int)m) : -1;
 }
 
-// Host side: the argument checks of launch() in band.cuh.
-inline bool band_args_ok(const BandParams &P) {
-  const bool l_ok = P.L == 8 || P.L == 16 || P.L == 32 || P.L == 64 ||
-                    P.L == 128;
-  return l_ok && P.R > 0 && P.width > 0 && P.C >= 0 && 2 * P.C + 1 <= P.L &&
-         P.NRL >= 2 && P.NRL <= P.L && P.DS >= 0 &&
-         !(P.backtrace && !P.planes_smem && P.scratch == nullptr);
-}
-
 // Shared memory of one pair on the segmented path: pattern and text one
 // code a byte, then (kept on chip, with backtrace) R rows x `planes` L-bit
-// words (ops/swg.py::warp_smem_bytes).
+// words (ops/nw.py, ops/swg.py::warp_smem_bytes).
 inline long seg_pair_bytes(const BandParams &P, bool planes_in_smem) {
   long b = 2L * round16(P.R);
   if (planes_in_smem && P.backtrace) b += (long)P.R * P.planes * (P.L / 8);
   return (b + 15) / 16 * 16;
+}
+
+// Sizes P for the segmented path; returns the shared memory a block.
+inline size_t seg_plan(SegParams &P) {
+  P.words = 1;
+  P.seq_bytes = round16(P.R);
+  P.pair_bytes = (int)seg_pair_bytes(P, P.planes_smem != 0);
+  return (size_t)P.pair_bytes * kWarps * (32 / P.L);
+}
+
+// Launches a segmented kernel, 32/L pairs a warp, on `stream`.  Returns
+// cudaGetLastError() after the launch (0 on success).
+template <typename K>
+inline int launch_seg(SegParams &P, K kern, void *stream) {
+  if (P.n <= 0) return 0;
+  if (!band_args_ok(P)) return (int)cudaErrorInvalidValue;
+  const size_t smem = seg_plan(P);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long per_block = (long)kWarps * (32 / P.L);
+  const long blocks = (P.n + per_block - 1) / per_block;
+  kern<<<(unsigned)blocks, 32 * kWarps, smem,
+         static_cast<cudaStream_t>(stream)>>>(P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace aimband

@@ -441,29 +441,6 @@ SegKernel seg_kernel(int L) {
                                               : swg_seg_kernel<32>;
 }
 
-// Sizes P for the segmented path; returns the shared memory a block.
-size_t seg_plan(SegParams &P) {
-  P.words = 1;
-  P.seq_bytes = round16(P.R);
-  P.pair_bytes = (int)seg_pair_bytes(P, P.planes_smem != 0);
-  return (size_t)P.pair_bytes * kWarps * (32 / P.L);
-}
-
-int launch_seg(SegParams &P, void *stream) {
-  if (P.n <= 0) return 0;
-  if (!band_args_ok(P)) return (int)cudaErrorInvalidValue;
-  const size_t smem = seg_plan(P);
-  SegKernel kern = seg_kernel(P.L);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long per_block = (long)kWarps * (32 / P.L);
-  const long blocks = (P.n + per_block - 1) / per_block;
-  kern<<<(unsigned)blocks, 32 * kWarps, smem,
-         static_cast<cudaStream_t>(stream)>>>(P);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -502,10 +479,8 @@ int aim_swg_forward(const void *pats, const void *txts, const void *plens,
   P.check_ovf = check_ovf;
   P.backtrace = backtrace;
   P.planes_smem = planes_smem;
-  if (L <= 32) return launch_seg(P, stream);
-  // band.cuh's launcher picks by L; its one-lane slot is never taken here
-  BandParams &Q = P;
-  return launch(Q, swg_kernel<2>, swg_kernel<2>, swg_kernel<4>, stream);
+  if (L <= 32) return launch_seg(P, seg_kernel(L), stream);
+  return launch_wide(P, swg_kernel<2>, swg_kernel<4>, stream);
 }
 
 // What K3 runs at (R, L): out = {registers a thread, local (spill) bytes a
@@ -518,42 +493,11 @@ int aim_swg_info(int R, int L, int backtrace, int planes_smem, int *out) {
   P.planes = kPlanes;
   P.backtrace = backtrace;
   P.planes_smem = planes_smem;
-  cudaFuncAttributes attr{};
-  cudaError_t e;
-  size_t smem;
-  int blocks = 0;
-  if (L <= 32) {
-    smem = seg_plan(P);
-    SegKernel kern = seg_kernel(L);
-    e = cudaFuncGetAttributes(&attr, kern);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                        32 * kWarps, smem);
-  } else if (L == 64 || L == 128) {
-    P.words = L / 32;
-    smem = (size_t)warp_bytes(P, planes_smem != 0) * kWarps;
-    auto kern = L == 64 ? swg_kernel<2> : swg_kernel<4>;
-    e = cudaFuncGetAttributes(&attr, kern);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
-                                                        32 * kWarps, smem);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return (int)e;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  out[4] = L <= 32 ? 32 / L : 1;
-  out[5] = 0;
-  return 0;
+  if (L <= 32) return band_info(seg_kernel(L), seg_plan(P), 32 / L, out);
+  if (L != 64 && L != 128) return (int)cudaErrorInvalidValue;
+  P.words = L / 32;
+  return band_info(L == 64 ? swg_kernel<2> : swg_kernel<4>,
+                   (size_t)warp_bytes(P, planes_smem != 0) * kWarps, 1, out);
 }
 
 }  // extern "C"

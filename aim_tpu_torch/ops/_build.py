@@ -129,8 +129,9 @@ def declare(lib):
     lib.aim_swg_forward.restype = ci
     lib.aim_swg_forward.argtypes = [vp] * 6 + [cl] + [ci] * 17 + [vp]
     # R L backtrace planes_smem, then the int[6] of INFO_KEYS
-    lib.aim_swg_info.restype = ci
-    lib.aim_swg_info.argtypes = [ci] * 4 + [vp]
+    for fn in (lib.aim_nw_info, lib.aim_swg_info):
+        fn.restype = ci
+        fn.argtypes = [ci] * 4 + [vp]
     # pointers, n, then width R k Rp backtrace hist_smem, and the stream
     lib.aim_genasm_forward.restype = ci
     lib.aim_genasm_forward.argtypes = [vp] * 6 + [cl] + [ci] * 6 + [vp]
@@ -146,6 +147,9 @@ def declare(lib):
     # ge ms, and the stream
     lib.aim_nwswg_long_forward.restype = ci
     lib.aim_nwswg_long_forward.argtypes = [vp] * 8 + [cl] + [ci] * 16 + [vp]
+    # planes swg, then the int[6] of INFO_KEYS
+    lib.aim_nwswg_long_info.restype = ci
+    lib.aim_nwswg_long_info.argtypes = [ci, ci, vp]
     # pointers (codes ism meta plens tlens rec), n, then R planes NRL RB
     # swg, and the stream
     lib.aim_nwswg_long_walk.restype = ci

@@ -28,6 +28,12 @@ Entry points:
     geometry and admission (``aim_tpu.ops.nw_pallas`` imports jax), held
     equal by tests.
 
+The CUDA kernel holds 32/L pairs a warp for L <= 32 (one band lane a
+thread) and one pair a warp past that; it keeps the three planes as L-bit
+words a row (``pairs_per_warp``, ``plane_bytes_per_pair``,
+``warp_smem_bytes``, ``planes_in_smem`` mirror its host sizing, which sizes
+the chunk and never the routing).
+
 The band helpers below (lane shifts, truncated scans, run emission, the
 record epilogue) are shared with ``ops/swg.py``.
 """
@@ -46,8 +52,9 @@ INF = 2 ** 20       # in-band "+infinity" of the reference kernels
 INT16_MAX = 32767
 OP_M, OP_X, OP_I, OP_D = 0, 1, 2, 3
 C_D, C_I, C_M, C_X = 0, 1, 2, 3        # NW direction codes
-# CUDA kernel geometry (kWarps in csrc/band.cuh): one warp per pair; the
-# code planes live in shared memory while a block's share fits.
+# CUDA kernel geometry (kWarps in csrc/band.cuh): 4 warps a block, 32/L
+# pairs a warp up to L = 32 and one past it; the code planes live in shared
+# memory while a block's share fits.
 WARPS = 4
 SMEM_PLANES_LIMIT = 48 * 1024
 REF_CELLS = 1 << 26  # code cells (pairs x rows x lanes) of a plain chunk
@@ -125,46 +132,60 @@ def vmem_fit_nw(cfg: AlignConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# kernel geometry shared with csrc/ (code planes: one bit a lane a row)
+# kernel geometry shared with csrc/nw.cu (code planes: one bit a lane a row)
 # ---------------------------------------------------------------------------
 
 N_PLANES = 3        # 2 code bits + is-match
 
 
-def plane_words(cfg: AlignConfig) -> int:
-    """32-bit words a plane row takes: one bit per band lane."""
-    return max(1, band_geometry(cfg)[1] // 32)
+def pairs_per_warp(cfg: AlignConfig) -> int:
+    """Pairs a warp of csrc/nw.cu: 32/L segments of L band lanes for
+    L <= 32, else one pair a warp."""
+    L = band_geometry(cfg)[1]
+    return 32 // L if L <= 32 else 1
 
 
 def plane_bytes_per_pair(cfg: AlignConfig) -> int:
-    """Code planes of one pair: R rows x N_PLANES planes x plane_words."""
+    """Code planes of one pair: R rows x N_PLANES words of L bits."""
     if not cfg.backtrace:
         return 0
-    return cfg.read_size * N_PLANES * plane_words(cfg) * 4
+    return cfg.read_size * N_PLANES * band_geometry(cfg)[1] // 8
 
 
 def warp_smem_bytes(cfg: AlignConfig, in_smem: bool) -> int:
-    """Shared memory of one warp (pair) in csrc/nw.cu: the unpacked pattern
-    and text, and (optionally) the code planes.  The kernel's host function
-    computes the same layout."""
+    """Shared memory of one warp in csrc/nw.cu: for each of its pairs the
+    unpacked pattern and text and (optionally) the code planes.  The
+    kernel's host function computes the same layout."""
     b = 2 * round_up(cfg.read_size, 16)
     if in_smem:
         b += plane_bytes_per_pair(cfg)
-    return round_up(b, 16)
+    return pairs_per_warp(cfg) * round_up(b, 16)
 
 
 def planes_in_smem(cfg: AlignConfig) -> bool:
+    """Whether a block's share of planes fits in 48 KB of shared memory
+    (else they go to a global scratch)."""
     return WARPS * warp_smem_bytes(cfg, True) <= SMEM_PLANES_LIMIT
 
 
 def device_bytes_per_pair(cfg: AlignConfig) -> int:
     """Device memory one pair holds during a kernel call: its two uploaded
     sequences (raw bytes, the larger form), lengths, the record and (when
-    the code planes do not fit in shared memory) its global plane scratch."""
+    the code planes do not fit in shared memory) its global plane scratch.
+    It sizes the chunk only; routing is ``vmem_fit_nw``'s."""
     per = 2 * cfg.read_size + 8 + 2 * runs_lanes_nw(cfg)
     if not planes_in_smem(cfg):
         per += plane_bytes_per_pair(cfg)
     return per
+
+
+def kernel_info(cfg: AlignConfig) -> dict:
+    """What csrc/nw.cu runs at ``cfg`` on the card (``_build.INFO_KEYS``:
+    registers, spill bytes, shared memory and resident blocks an SM, pairs a
+    warp)."""
+    from aim_tpu_torch.ops import _build
+    return _build.kernel_info("nw", cfg.read_size, band_geometry(cfg)[1],
+                              int(cfg.backtrace), int(planes_in_smem(cfg)))
 
 
 # ---------------------------------------------------------------------------

@@ -183,6 +183,15 @@ def device_bytes_per_pair(cfg: AlignConfig, planes: int = 1) -> int:
     return per
 
 
+def kernel_info(cfg: AlignConfig, planes: int) -> dict:
+    """What K6 (csrc/nwswg_long.cu) runs at ``planes`` for ``cfg`` on the
+    card (``_build.INFO_KEYS``: registers, spill bytes, shared memory and
+    resident blocks an SM, pairs a warp)."""
+    from aim_tpu_torch.ops import _build
+    return _build.kernel_info("nwswg_long", planes,
+                              int(cfg.algo == ALGO_SWG))
+
+
 def seq_geometry(cfg: AlignConfig, width: int, packed: bool, npl: int):
     """(weff, lpad) of the reference's symbol rows: symbols j < weff come
     from the input (the unpacked codes are cut at R), positions up to

@@ -36,8 +36,8 @@ from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 from aim_tpu_torch.ops.nw import (I32, INF, OP_D, OP_I, OP_M, OP_X,
                                   band_geometry, band_half, chunk_pairs,
                                   emit_merge, emit_tails, floordiv,
-                                  launch_band, match_run, record,
-                                  runs_lanes_nw, scan_rounds, seg_at,
+                                  launch_band, match_run, pairs_per_warp,
+                                  record, runs_lanes_nw, scan_rounds, seg_at,
                                   seq_codes, shift, trunc_scan, walk_state)
 
 CH_D, CH_I, CH_M, CH_X = 0, 1, 2, 3
@@ -100,13 +100,6 @@ def cell_limits(cfg: AlignConfig):
 # ---------------------------------------------------------------------------
 # kernel geometry shared with csrc/swg.cu
 # ---------------------------------------------------------------------------
-
-def pairs_per_warp(cfg: AlignConfig) -> int:
-    """Pairs a warp of csrc/swg.cu: 32/L segments of L band lanes for
-    L <= 32, else one pair a warp."""
-    L = band_geometry(cfg)[1]
-    return 32 // L if L <= 32 else 1
-
 
 def plane_bytes_per_pair(cfg: AlignConfig) -> int:
     """Code planes of one pair: R rows x N_PLANES words of L bits."""

@@ -11,8 +11,8 @@ before the last line:
               records byte-equal, and the scores/CIGARs of every pair (K1,
               K4, K5) or every unflagged pair (K2 NW, K3 SWG, K6/K7) equal
               to the native oracle.  K1 (csrc/wfa2.cu) on 12 configs, K2
-              (csrc/nw.cu) on 9, K3 (csrc/swg.cu) on 12 (band widths 8 to
-              128), K4 (csrc/genasm.cu) on 15 (6 to 150 rows), 4096 seeded
+              (csrc/nw.cu) on 14 and K3 (csrc/swg.cu) on 12 (band widths 8
+              to 128), K4 (csrc/genasm.cu) on 15 (6 to 150 rows), 4096 seeded
               pairs each (4095 where neighbours in a warp differ: normal
               beside flagged, overflowing or edge pairs, the last warp
               part-empty); each K2-K4 line names the kernel's path (pairs
@@ -48,8 +48,9 @@ before the last line:
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
               pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
               records compared once more at this, the CLI's launch shape;
-              K3's and K4's registers, spills, shared memory and resident
-              blocks an SM.
+              K6 also on the first 1024 pairs of its chunk (the 4 kbp CLI
+              runs' size); K2's, K3's, K4's and K6's registers, spills,
+              shared memory and resident blocks an SM.
   5. probes   the tooling path: `aim_tpu_torch.tools.microbench` drives the
               13 CUDA probes of csrc/probes.cu (M1's twelve, M2) with their
               launch counters at 0; each probe's output equal to its plain
@@ -303,8 +304,14 @@ def band_configs():
     out.append(("nw_L128_R1120", AlignConfig(
         algo="nw", read_size=1120, max_score=120, gap_i=1, gap_d=1,
         mismatch=1, backtrace=True), dg(0.02, length=1000, R=1120)))
-    # K3 at each band width past L = 16: 4 pairs a warp at L = 8, one at
-    # 32, 128; L = 16 with its planes in the global scratch
+    # K2 and K3 at each band width past L = 16: 4 pairs a warp at L = 8,
+    # one at 32, 128; L = 16 with its planes in the global scratch
+    nw_main = derive_config("nw", 100, 0.01, backtrace=True)
+    out += [("nw_L8", nw_main.replace(max_score=2), dg(0.005)),
+            ("nw_L32", nw_main.replace(max_score=20), dg(0.02)),
+            ("nw_L16_R800_global", AlignConfig(
+                algo="nw", read_size=800, max_score=8, backtrace=True),
+             dg(0.003, length=780, R=800))]
     out += [("swg_L8", swg_main.replace(max_score=2), dg(0.005)),
             ("swg_L32", swg_main.replace(max_score=10), dg(0.02)),
             ("swg_L128_R96", AlignConfig(
@@ -325,10 +332,11 @@ def band_configs():
     mixed = interleave(tuple(a[:2048] for a in near),
                        tuple(a[:2048] for a in far),
                        pack(EDGE_PAIRS * 8, 112))
-    for bt in (True, False):
-        out.append((f"swg_mixed_neighbours_bt{int(bt)}",
-                    swg_main.replace(backtrace=bt),
-                    tuple(a[:4095] for a in mixed)))
+    for algo, main in (("swg", swg_main), ("nw", nw_main)):
+        for bt in (True, False):
+            out.append((f"{algo}_mixed_neighbours_bt{int(bt)}",
+                        main.replace(backtrace=bt),
+                        tuple(a[:4095] for a in mixed)))
     return out
 
 
@@ -373,7 +381,7 @@ def phase_band_kernels():
                             for i in np.nonzero(ok)[0])
         C, L, _, NRL = nw.band_geometry(cfg)
         in_smem = mod.plane_layout(cfg)[0]
-        ppw = swg.pairs_per_warp(cfg) if cfg.algo == "swg" else 1
+        ppw = nw.pairs_per_warp(cfg)
         emit({"phase": "kernel", "kernel": cfg.algo, "config": name,
               "pairs": len(pl), "read_size": cfg.read_size,
               "max_score": cfg.max_score, "C": C, "L": L, "NRL": NRL,
@@ -390,11 +398,15 @@ def phase_band_kernels():
             fail(f"{name}: expected L = 128 with global planes")
         want_path = {"swg_main_bt1": (16, 2, True), "swg_L8": (8, 4, True),
                      "swg_L32": (32, 1, True), "swg_L128_R96": (128, 1, True),
-                     "swg_L16_R520_global": (16, 2, False)}.get(name)
+                     "swg_L16_R520_global": (16, 2, False),
+                     "nw_main_bt1": (16, 2, True), "nw_L8": (8, 4, True),
+                     "nw_L32": (32, 1, True),
+                     "nw_L128_R1120": (128, 1, False),
+                     "nw_L16_R800_global": (16, 2, False)}.get(name)
         if want_path and want_path != (L, ppw, in_smem):
             fail(f"{name}: expected (L, pairs a warp, planes in shared "
                  f"memory) {want_path}, got {(L, ppw, in_smem)}")
-        if name.startswith("swg_mixed") and not 0.3 < flagged.mean() < 0.7:
+        if "_mixed" in name and not 0.3 < flagged.mean() < 0.7:
             fail(f"{name}: expected flagged and unflagged neighbours")
     return max_err
 
@@ -663,7 +675,8 @@ def stream_configs():
            ("nw_mixed_R520_p2", AlignConfig(read_size=520, **NW_LONG),
             mixed_lengths_batch(R=520, n=256), 2, True),
            ("swg_wrap_R1040_p2", wrap, fuzz_batch(1040), 2, False)]
-    for case in ("swg_wide_retry", "ladder_p4", "ladder_p8", "nrl1024_p2"):
+    for case in ("swg_wide_retry", "ladder_p4", "ladder_p8", "nrl1024_p2",
+                 "nw_ovf_p1"):
         cfg, p, t, pl, tl, planes = nwswg_long_case(case)
         out.append((f"case_{case}", cfg, (p, t, pl, tl), planes, False))
     # the shape the ladder hands K6/K7 behind K2 and K3: raw bytes, two
@@ -1199,7 +1212,7 @@ def phase_timing(reps=20):
         bnd = chunk_bound(name, cfg, args, rec)
         # the redesigned kernels' registers, spills, shared memory and
         # resident blocks an SM, pairs a warp (CUDA's function attributes)
-        info = {"swg": swg, "genasm": genasm}.get(name)
+        info = {"nw": nw, "swg": swg, "genasm": genasm}.get(name)
         report(name, cfg, length, flags, len(pl), k_ms, p_ms, k_reps, err,
                bnd, info.kernel_info(cfg) if info else None)
         out[name] = (k_ms, p_ms, err) + bnd[:2]
@@ -1234,14 +1247,28 @@ def phase_timing(reps=20):
              code_rows_err(ism, pism, args[3]))
     e7 = int((rec.long() - prec.long()).abs().max())
     flags = "-b --variant hbm"
+    k6_info = nwswg_long.kernel_info(cfg, planes)
     for name, k_ms, p_ms, err, r in (("nwswg_long_fwd", k6_ms, p6_ms, e6,
                                       rec),
                                      ("nwswg_long_walk", k7_ms, p7_ms, e7,
                                       rec)):
         bnd = chunk_bound(name, cfg, args, r)
         report(name, cfg, 4096, flags, STREAM_TIMING_PAIRS, k_ms, p_ms, 5,
-               err, bnd)
+               err, bnd, k6_info if name == "nwswg_long_fwd" else None)
         out[name] = (k_ms, p_ms, err) + bnd[:2]
+    # K6 on the first STREAM_PAIRS of the chunk too, the 4 kbp CLI runs'
+    # size (a quarter wave): latency, where the full chunk shows throughput
+    small = tuple(a[:STREAM_PAIRS] for a in args)
+    k6s_ms = timed(lambda: nwswg_long.launch_forward(
+        *small, cfg=cfg, packed=packed, planes=planes), 5)
+    got = nwswg_long.launch_forward(*small, cfg=cfg, packed=packed,
+                                    planes=planes)
+    e6s = max(int((got[0].long() - pmeta[:STREAM_PAIRS].long()).abs().max()),
+              code_rows_err(got[1], pcodes[:STREAM_PAIRS], small[3]),
+              code_rows_err(got[2], pism[:STREAM_PAIRS], small[3]))
+    bnd = chunk_bound("nwswg_long_fwd", cfg, small, rec[:STREAM_PAIRS])
+    report("nwswg_long_fwd", cfg, 4096, flags, STREAM_PAIRS, k6s_ms, None, 5,
+           e6s, bnd, k6_info)
     return out
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from aim_tpu_torch.config import AlignConfig
 from aim_tpu_torch.ops import (_build, common, genasm, nw, nwswg_long,
                                probes, swg, wfa2, wfa_long)
 from torch_cases import (CASES, GENASM_CASES, WFA_LONG_CASES, case,
@@ -30,13 +31,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LAUNCH = re.compile(r"(\w+)\s*<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>"
                     r"\((\w+)\);", re.S)
 SHARED = "extern __shared__ __align__(16) unsigned char smem[];"
-# K3 at every band width (L 8, 16, 32 on the segmented path, 64 and 128
-# one pair a warp), with neighbours that differ in one warp, score only,
-# and its planes in the global scratch
+# K2 and K3 at every band width (L 8, 16, 32 on the segmented path, 64 and
+# 128 one pair a warp), with neighbours that differ in one warp, score only,
+# and their planes in the global scratch
 NWSWG = ["nw_main_bt", "swg_main_bt", "nw_edges", "swg_edges",
          "nw_ovf_check", "nw_l128", "swg_acgtn", "swg_main_nobt", "swg_l8",
-         "swg_l32", "swg_int16", "swg_l128", "swg_mixed", "swg_r520_global"]
-NWSWG_LONG_SHIM = ["nw_p1_r200", "swg_p2_r200"]
+         "swg_l32", "swg_int16", "swg_l128", "swg_mixed", "swg_r520_global",
+         "nw_main_nobt", "nw_l8", "nw_l32", "nw_mixed", "nw_r800_global"]
+NWSWG_LONG_SHIM = ["nw_p1_r200", "swg_p2_r200", "mixed_p1", "nw_multiblock",
+                   "swg_wide_retry_p2", "nw_ovf_p1", "swg_multiblock"]
 
 
 @pytest.fixture(scope="module")
@@ -135,6 +138,35 @@ def test_band_cu_matches_plain_version(lib, name):
         got, nwswg_records(cfg, p, t, pl, tl, packed))
 
 
+# (R, MAX_SCORE) of K2's layout grid: MAX_SCORE 2, 8, 20, 40 and 100 give
+# band widths L = 8, 16, 32, 64 and 128 at the default costs
+NW_LAYOUT_GRID = [(R, s) for R in (48, 112, 520, 800, 1520)
+                  for s in (2, 8, 20, 40, 100)]
+
+
+@pytest.mark.parametrize("R,max_score", NW_LAYOUT_GRID)
+def test_nw_kernel_layout(lib, R, max_score):
+    """ops/nw.py's mirrors of csrc/nw.cu's sizing: pairs a warp (32/L up to
+    L = 32) and a block's shared memory (pattern, text and L-bit plane
+    words a pair) as aim_nw_info reports them, with and without
+    backtrace."""
+    for bt in (True, False):
+        cfg = AlignConfig(algo="nw", read_size=R, max_score=max_score,
+                          backtrace=bt)
+        L = nw.band_geometry(cfg)[1]
+        out = (ctypes.c_int * len(_build.INFO_KEYS))()
+        assert lib.aim_nw_info(R, L, int(bt), int(nw.planes_in_smem(cfg)),
+                               out) == 0
+        info = dict(zip(_build.INFO_KEYS, out))
+        assert info["pairs_per_warp"] == nw.pairs_per_warp(cfg) == \
+            (32 // L if L <= 32 else 1)
+        assert info["smem_block_bytes"] == nw.WARPS * nw.warp_smem_bytes(
+            cfg, nw.planes_in_smem(cfg))
+        assert nw.plane_bytes_per_pair(cfg) == (R * 3 * L // 8 if bt else 0)
+        assert nw.plane_layout(cfg) == (nw.planes_in_smem(cfg),
+                                        nw.plane_bytes_per_pair(cfg))
+
+
 @pytest.mark.parametrize("name", GENASM_CASES + ["r112_k7_bt"])
 def test_genasm_cu_matches_plain_version(lib, name):
     cfg, p, t, pl, tl = genasm_case(name)
@@ -169,12 +201,9 @@ def test_wfa_long_cu_matches_plain_version(lib, name, packed_ok):
                                          packed=packed).numpy())
 
 
-@pytest.mark.parametrize("name", NWSWG_LONG_SHIM)
-def test_nwswg_long_cu_matches_plain_version(lib, name):
-    """K6 + K7 (csrc/nwswg_long.cu) under the shim: records equal to the
-    plain versions, the code-row scratch starting as garbage."""
+def _nwswg_long_check(lib, name, packed_ok):
     cfg, p, t, pl, tl, planes = nwswg_long_case(name)
-    args, packed = _tensors(p, t, pl, tl, cfg.read_size)
+    args, packed = _tensors(p, t, pl, tl, cfg.read_size, packed_ok)
     n, R = len(pl), cfg.read_size
     NRL = nwswg_long.runs_lanes_long(cfg)
     cb, ib = nwswg_long.row_bytes(cfg, planes)
@@ -190,10 +219,16 @@ def test_nwswg_long_cu_matches_plain_version(lib, name):
         weff, lpad, R, planes, NRL, int(cfg.algo == "swg"),
         int(cfg.backtrace), cfg.gap_i, cfg.gap_d, cfg.mismatch, cfg.match,
         cfg.gap_o, cfg.gap_e, cfg.max_score, None) == 0
-    want_meta = nwswg_long.nwswg_long_fwd_reference(
-        *args, cfg=cfg, packed=packed, planes=planes)[0]
+    want_meta, want_codes, want_ism = nwswg_long.nwswg_long_fwd_reference(
+        *args, cfg=cfg, packed=packed, planes=planes)
     np.testing.assert_array_equal(meta.numpy(), want_meta.numpy())
     if cfg.backtrace:
+        # K6's code rows, every row a pair reaches (rows past its tlen are
+        # never written nor read)
+        live = np.arange(R)[None, :] < np.asarray(tl)[:, None]
+        for got, want in ((codes, want_codes), (ism, want_ism)):
+            np.testing.assert_array_equal(got.numpy()[live],
+                                          want.numpy()[live])
         assert lib.aim_nwswg_long_walk(
             codes.data_ptr(), ism.data_ptr(), meta.data_ptr(),
             args[2].data_ptr(), args[3].data_ptr(), rec.data_ptr(), n, R,
@@ -202,6 +237,20 @@ def test_nwswg_long_cu_matches_plain_version(lib, name):
     np.testing.assert_array_equal(
         rec.numpy(), nwswg_long.nwswg_forward_long(
             *args, cfg=cfg, packed=packed, planes=planes).numpy())
+
+
+@pytest.mark.parametrize("name", NWSWG_LONG_SHIM)
+def test_nwswg_long_cu_matches_plain_version(lib, name):
+    """K6 + K7 (csrc/nwswg_long.cu) under the shim: meta, code rows and
+    records equal to the plain versions, the code-row scratch starting as
+    garbage; 2-bit packed input."""
+    _nwswg_long_check(lib, name, True)
+
+
+@pytest.mark.parametrize("name", ["nw_p1_r200", "swg_p2_r200", "mixed_p1"])
+def test_nwswg_long_cu_raw_bytes(lib, name):
+    """The same on raw bytes (the input of batches that do not pack)."""
+    _nwswg_long_check(lib, name, False)
 
 
 # every probe at 17 reps; M2 past its 60-row wrap; the while loop's

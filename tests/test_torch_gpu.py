@@ -253,6 +253,36 @@ def test_cuda_swg_path(cuda_device, name, ppw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,ppw", [("nw_main_bt", 2), ("nw_l8", 4),
+                                      ("nw_l32", 1), ("nw_r800_global", 2),
+                                      ("nw_l128", 1)])
+def test_cuda_nw_path(cuda_device, name, ppw):
+    """K2's launch on the card: 32/L pairs a warp up to L = 32, shared
+    memory as ops/nw.py sizes it, at most 64 registers a thread, no spills
+    and at least 8 blocks an SM on the segmented path."""
+    cfg = nwswg_case(name)[0]
+    info = nw.kernel_info(cfg)
+    assert info["pairs_per_warp"] == ppw == nw.pairs_per_warp(cfg)
+    assert info["smem_block_bytes"] == \
+        nw.WARPS * nw.warp_smem_bytes(cfg, nw.planes_in_smem(cfg))
+    if nw.band_geometry(cfg)[1] <= 32:
+        assert info["registers"] <= 64 and info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("algo", ["nw", "swg"])
+def test_cuda_nwswg_long_registers(cuda_device, algo, planes):
+    """K6 at one and two planes: at most 64 registers a thread and no
+    spills, so 8 blocks of 4 warps fit an SM (a 4096-pair chunk in one
+    wave on 132 SMs)."""
+    info = nwswg_long.kernel_info(derive_long(algo), planes)
+    assert info["registers"] <= 64 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= 8 and info["pairs_per_warp"] == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", WFA_LONG_CASES)
 def test_cuda_wfa_long_matches_reference(cuda_device, name):
     """K5 records byte-equal to the plain version, both word layouts."""
@@ -337,7 +367,8 @@ def _long(dev, cfg, p, t, pl, tl, planes, packed, reference=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
-@pytest.mark.parametrize("name", NWSWG_LONG_CASES + NWSWG_LONG_WIDE)
+@pytest.mark.parametrize("name", NWSWG_LONG_CASES + NWSWG_LONG_WIDE +
+                         ["nw_ovf_p1"])
 def test_cuda_nwswg_long_matches_reference(cuda_device, name, packed):
     """K6/K7 records byte-equal to the plain versions on the card, flagged
     pairs, planes 1 to 8, NRL 256 to 1024 and score-only runs included."""

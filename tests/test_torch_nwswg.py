@@ -214,8 +214,8 @@ def test_wrapper_rejects_bad_inputs(algo, bad):
 
 def test_swg_kernel_layout():
     """K3 takes 32/L pairs a warp up to L = 32 and keeps L-bit plane words:
-    two pairs a warp at the 100 bp config, 1,120 B of planes a pair; K2's
-    layout stays one pair a warp with 32-bit words."""
+    two pairs a warp at the 100 bp config, 1,120 B of planes a pair; K2
+    does the same with its three planes, 672 B a pair."""
     assert swg.pairs_per_warp(SWG_MAIN) == 2
     assert swg.plane_bytes_per_pair(SWG_MAIN) == 112 * 5 * 2
     assert swg.warp_smem_bytes(SWG_MAIN, True) == 2 * (224 + 1120)
@@ -232,7 +232,8 @@ def test_swg_kernel_layout():
     assert not swg.planes_in_smem(big)
     assert kernels.forward_fn(big).device_bytes_per_pair == \
         swg.device_bytes_per_pair(big) > 520 * 5 * 2
-    assert nw.plane_layout(NW_MAIN) == (True, 112 * 3 * 4)
+    assert nw.plane_layout(NW_MAIN) == (True, 112 * 3 * 2)
+    assert nw.pairs_per_warp(NW_MAIN) == 2
 
 
 def test_plan_uses_the_serving_kernel_footprint():

@@ -70,6 +70,15 @@ def test_plain_matches_pallas_interpret(jax_records, name):
     np.testing.assert_array_equal(got, want)
 
 
+def test_int16_range_check_matches_pallas_interpret(jax_records):
+    """NW at costs of 150-200: valid cells pass int16 in the last rows, and
+    the forward flags match the reference's."""
+    cfg, p, t, pl, tl, planes = nwswg_long_case("nw_ovf_p1")
+    want = jax_records("nw_ovf_p1")
+    np.testing.assert_array_equal(_port(cfg, p, t, pl, tl, planes), want)
+    assert _flags(want)[1].any()
+
+
 def test_cases_reach_what_they_cover(jax_records):
     """The cases hit the paths they stand for: several row blocks, flagged
     pairs, records past 256 lanes with the cursor's high bits set, and

@@ -104,7 +104,8 @@ NWSWG_CASES = ["nw_main_bt", "nw_main_nobt", "swg_main_bt", "swg_main_nobt",
                "swg_r40_unbal", "nw_packed", "swg_packed", "nw_acgtn",
                "swg_acgtn", "nw_flag_heavy", "swg_flag_heavy", "nw_edges",
                "swg_edges", "nw_ovf_check", "swg_ovf_check", "swg_int16",
-               "nw_l128", "swg_l8", "swg_l32", "swg_l128", "swg_mixed"]
+               "nw_l128", "swg_l8", "swg_l32", "swg_l128", "swg_mixed",
+               "nw_l8", "nw_l32", "nw_mixed", "nw_r800_global"]
 
 EDGE_PAIRS = [("", ""), ("ACGT", ""), ("", "ACGTAC"), ("A", "A"),
               ("AC", "A"), ("ACG", "A"), ("A" * 100, "A" * 100),
@@ -209,15 +210,30 @@ def nwswg_case(name):
                           backtrace=True)
         return (cfg, *datagen.generate_pairs(24, 500, 0.005, read_size=520,
                                              seed=11), False)
-    if name == "swg_mixed":
+    # K2's band widths past the 100 bp config's L = 16: MAX_SCORE 2 gives
+    # L = 8 (four pairs a warp in the CUDA kernel), 20 gives L = 32
+    if name == "nw_l8":
+        return (NW_MAIN.replace(max_score=2), *datagen.generate_pairs(
+            96, 100, 0.005, read_size=112, seed=12), False)
+    if name == "nw_l32":
+        return (NW_MAIN.replace(max_score=20), *datagen.generate_pairs(
+            96, 100, 0.02, read_size=112, seed=13), False)
+    if name == "nw_r800_global":
+        # L = 16 past 48 KB of planes a block: the planes in the global
+        # scratch
+        cfg = AlignConfig(algo="nw", read_size=800, max_score=8,
+                          backtrace=True)
+        return (cfg, *datagen.generate_pairs(24, 780, 0.003, read_size=800,
+                                             seed=14), False)
+    if name in ("swg_mixed", "nw_mixed"):
         # unlike neighbours in one warp: a normal pair next to a flagged
         # one (1 % and 10 % errors interleaved) or an edge pair (empty
         # sequences, full lengths), and 137 pairs, which leave the last
         # warp part-empty
         near = datagen.generate_pairs(64, 100, 0.01, read_size=112, seed=8)
         far = datagen.generate_pairs(64, 100, 0.1, read_size=112, seed=9)
-        edges = pack(EDGE_PAIRS, SWG_MAIN.read_size)
-        return (SWG_MAIN, *interleave(near, far, edges), False)
+        edges = pack(EDGE_PAIRS, main.read_size)
+        return (main, *interleave(near, far, edges), False)
     raise KeyError(name)
 
 
@@ -519,6 +535,14 @@ def nwswg_long_case(name):
         cfg = AlignConfig(algo="nw", read_size=200, max_score=60,
                           backtrace=True, gap_i=2, gap_d=3, mismatch=3)
         return (cfg, *pack(random_pairs(seed=5, n=8, max_len=190,
+                                        balanced=False), 200), 1)
+    if name == "nw_ovf_p1":
+        # costs of 150-200: cells pass int16 in the last rows, where the
+        # range check runs (before row ~98 no valid cell can)
+        cfg = AlignConfig(algo="nw", read_size=200, max_score=60,
+                          backtrace=True, gap_i=200, gap_d=200,
+                          mismatch=150)
+        return (cfg, *pack(random_pairs(seed=15, n=8, max_len=196,
                                         balanced=False), 200), 1)
     if name == "swg_p2_r200":
         cfg = AlignConfig(read_size=200, **SWG_LONG)

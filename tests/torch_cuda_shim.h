@@ -81,6 +81,9 @@ inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return (unsigned)((((uint64_t)hi << 32) | lo) >> (shift & 31));
+}
 // SIMD-in-word: four int8 lanes a word, each add wrapping, each min signed
 template <class Op>
 inline unsigned shim_bytes(unsigned a, unsigned b, Op op) {
