@@ -5,37 +5,36 @@
 // pair, the gap-affine wavefront forward (extend, adaptive reduce,
 // next-score compute) up to smax, then a level-walk backtrace writing one
 // step record per score level into records[n, smax+4] int32, byte-equal
-// to the reference kernel.  The recursion and the walk are csrc/wfa.cuh,
-// shared with K5 (wfa_long.cu); this file stages the pair, brings the
-// extend and places the history.
+// to the reference kernel.  The recursion, the walk and the extend are
+// csrc/wfa.cuh, shared with K5 (wfa_long.cu); this file stages the pairs
+// and places the history.
 //
-// Mapping: one warp per pair, lanes over the K = 2*smax+1 diagonals (a
-// loop when K > 32).  Per-pair state lives
-// in shared memory: klo/khi/flags per level, the pattern and text
-// unpacked to one code per byte, and -- when a block's share fits in
-// 48 KB -- the m/i/d offset history [3][smax+1][K] int16 (396 B a pair at
-// smax = 5); otherwise the history goes to a global scratch the wrapper
-// allocates.  The backtrace is sequential per pair and runs on lane 0.
+// Mapping: where all K = 2*smax+1 diagonals fit in 16 lanes (smax <= 7,
+// the 100 bp config's K = 11), two pairs a warp, one diagonal a lane of a
+// 16-lane segment; otherwise one pair a warp, lanes over the live band.
+// Per pair, in shared memory: the band word per level, the pattern and
+// text staged as they arrive (2-bit codes, 16 bases a word, or raw bytes),
+// and -- while a block's share fits in 48 KB -- the m/i/d offset history
+// [3][smax+1][K] int16 (396 B a pair at smax = 5); otherwise the history
+// goes to a global scratch the wrapper allocates.  The extend compares a
+// 64-bit window at a time (32 packed bases, or 8 bytes), so a ~100-base
+// match run takes 4 steps, not 100.
 //
-// What bounds it on this card: neither bytes nor tensor math.  A pair
-// reads 2x30 packed bytes and writes 36 record bytes (main config); the
-// work is a few hundred dependent integer steps per pair, so the kernel is
-// latency bound and needs many warps in flight: 16384 pairs a chunk give
-// 4096 blocks of 4 warps, about 31 blocks for each of the 132 SMs.
-// Extend compares one byte per step, like the reference oracle; TPU
-// workarounds (mismatch bitmasks from a reversed pattern plane, the 4-bit
-// next-word table, float-exponent ctz, one-hot gathers, rolls) are not
-// carried over.
-//
-// Bounds come from the lengths, never from the data: a mismatch is forced
-// for h < max(k,0) and h >= min(tlen, plen+k); packed padding codes are 0,
-// the code of a real base.
+// What bounds it on this card: neither bytes nor arithmetic.  A pair reads
+// 2 x 28 packed bytes and writes 36 record bytes (main config), reaches
+// ~5.3 levels and holds ~6 live cells in all; its work is a chain of a few
+// dozen dependent steps (shared loads, warp votes and reductions, the walk
+// on one lane).  Measured (NVIDIA H100, tools/row_profile.py): 528 pairs,
+// one wave, take ~10 us, and a 16,384-pair chunk 0.026 ms at 55 registers
+// and 9 blocks an SM (1.7 waves), where the first design (one pair a warp,
+// a byte a step from unpacked rows) took 0.057 ms in 3.1 waves.  Capping
+// the registers at 40 for 12 blocks an SM spilled and ran slower.
 
 #include "wfa.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // pairs a block (WARPS in ops/wfa2.py)
+constexpr int kWarps = aimband::kWarps;  // warps a block (WARPS in ops/wfa2.py)
 
 struct Params {
   const uint8_t *pats, *txts;
@@ -44,77 +43,67 @@ struct Params {
   int16_t *scratch;  // [n][3][smax+1][K] when the history is not in smem
   long n;
   int width;         // bytes per sequence row
-  int packed;        // 2-bit codes, 4 a byte, little-endian fields
+  int bsh;           // log2 of the bits a base: 1 (2-bit codes) or 3 (bytes)
   int smax, K, Rp;
   int x, go, ge;
   int adaptive, backtrace, hist_smem;
-  int warp_bytes;    // shared memory per warp
+  int seq_words;     // staged 32-bit words a sequence
+  int pair_bytes;    // shared memory per pair
 };
 
+template <int W>
 __global__ void __launch_bounds__(32 * kWarps) wfa2_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kPairs = 32 / W;  // pairs a warp
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long pair = (long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (pair >= P.n) return;  // warp-uniform
+  const long first = ((long)blockIdx.x * kWarps + warp) * kPairs;
+  if (first >= P.n) return;  // warp-uniform
+  const int seg = lane / W, b = lane & (W - 1);
+  const long pair = first + seg;
+  const bool live = pair < P.n;
 
-  const int smax = P.smax, K = P.K, Rp = P.Rp;
-  const int S1 = smax + 1;
-  unsigned char *base = smem + (size_t)warp * P.warp_bytes;
+  const int smax = P.smax, K = P.K, S1 = smax + 1;
+  unsigned char *base =
+      smem + (size_t)(warp * kPairs + seg) * P.pair_bytes;
   aimwfa::Levels S;
-  S.KL = reinterpret_cast<int *>(base);
-  S.KH = S.KL + S1;
-  S.FL = S.KH + S1;
-  uint8_t *sp = reinterpret_cast<uint8_t *>(S.FL + S1);
-  uint8_t *st = sp + Rp;
-  S.Hm = P.hist_smem ? reinterpret_cast<int16_t *>(st + Rp)
+  S.LV = reinterpret_cast<int *>(base);
+  uint32_t *sp = reinterpret_cast<uint32_t *>(S.LV + S1);
+  uint32_t *st = sp + P.seq_words;
+  S.Hm = P.hist_smem ? reinterpret_cast<int16_t *>(st + P.seq_words)
                      : P.scratch + pair * (3L * S1 * K);
   S.Hi = S.Hm + S1 * K;
   S.Hd = S.Hi + S1 * K;
 
-  const int plen = P.plens[pair], tlen = P.tlens[pair];
-
-  // ---- stage the pair: one code per byte, zero past the input width ----
-  {
-    const uint8_t *gp = P.pats + pair * P.width;
-    const uint8_t *gt = P.txts + pair * P.width;
-    for (int j = lane; j < Rp; j += 32) {
-      uint8_t a = 0, b = 0;
-      if (P.packed) {
-        const int byte = j >> 2, sh = 2 * (j & 3);
-        if (byte < P.width) {
-          a = (gp[byte] >> sh) & 3;
-          b = (gt[byte] >> sh) & 3;
-        }
-      } else if (j < P.width) {
-        a = gp[j];
-        b = gt[j];
-      }
-      sp[j] = a;
-      st[j] = b;
-    }
+  // plen, tlen <= R < Rp by contract; the clamps keep a caller that breaks
+  // it inside the staged rows.
+  const int plen = live ? min(P.plens[pair], P.Rp) : 0;
+  const int tlen = live ? min(P.tlens[pair], P.Rp) : 0;
+  if (live) {
+    aimwfa::stage_row<W>(sp, P.pats + pair * P.width, P.width, P.seq_words,
+                         b);
+    aimwfa::stage_row<W>(st, P.txts + pair * P.width, P.width, P.seq_words,
+                         b);
   }
-  // staged bytes are visible to the warp after the forward's first
-  // __syncwarp, before any extend reads them
-
-  // one byte a step, like the reference oracle
-  auto extend = [&](int k, int m) {
-    if (m >= Rp) return m;
-    const int lo_b = k > 0 ? k : 0;
-    // plen, tlen <= R < Rp by contract; the clamps keep a caller that
-    // breaks it inside the staged rows.
-    int hi_b = min(tlen, min(plen, Rp) + k);
-    hi_b = min(max(hi_b, 0), Rp);
-    int h = m;
-    if (h >= lo_b) {
-      while (h < hi_b && sp[h - k] == st[h]) ++h;
-    }
-    return h;
-  };
+  const aimwfa::WindowExtend extend{sp, st, plen, tlen, P.bsh};
   const aimwfa::Costs C{smax, K, P.x, P.go, P.ge, P.adaptive};
-  const int score = aimwfa::forward(C, S, plen, tlen, lane, extend);
-  aimwfa::write_records(C, S, plen, tlen, score, P.backtrace != 0,
-                        P.rec + pair * (long)(smax + 4), lane);
+  const int score = aimwfa::forward<W>(C, S, plen, tlen, live, b, extend);
+  aimwfa::write_records<W>(C, S, plen, tlen, score, P.backtrace != 0, live,
+                           P.rec + pair * (long)(smax + 4), b);
+}
+
+// Sizes P from smax and Rp; returns the segment width W.
+int plan(Params &P, int smax, int Rp, int hist_smem) {
+  P.smax = smax;
+  P.K = 2 * smax + 1;
+  P.Rp = Rp;
+  P.hist_smem = hist_smem;
+  // room for raw bytes (4 a word) whatever the layout, three spare words
+  P.seq_words = Rp / 4 + 3;
+  long pb = 4L * (smax + 1) + 8L * P.seq_words;
+  if (hist_smem) pb += 6L * (smax + 1) * P.K;
+  P.pair_bytes = (int)((pb + 15) / 16 * 16);
+  return P.K <= 16 ? 16 : 32;
 }
 
 }  // namespace
@@ -129,7 +118,7 @@ int aim_wfa2_forward(const void *pats, const void *txts, const void *plens,
                      int ge, int adaptive, int backtrace, int hist_smem,
                      void *stream) {
   if (n <= 0) return 0;
-  if (smax < 0 || Rp <= 0 || width <= 0 ||
+  if (smax < 0 || smax > 1023 || Rp <= 0 || Rp % 16 || width <= 0 ||
       (!hist_smem && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   Params P;
@@ -141,28 +130,35 @@ int aim_wfa2_forward(const void *pats, const void *txts, const void *plens,
   P.scratch = static_cast<int16_t *>(scratch);
   P.n = n;
   P.width = width;
-  P.packed = packed;
-  P.smax = smax;
-  P.K = 2 * smax + 1;
-  P.Rp = Rp;
+  P.bsh = packed ? 1 : 3;
   P.x = x;
   P.go = go;
   P.ge = ge;
   P.adaptive = adaptive;
   P.backtrace = backtrace;
-  P.hist_smem = hist_smem;
-  long wb = 12L * (smax + 1) + 2L * Rp;
-  if (hist_smem) wb += 6L * (smax + 1) * P.K;
-  wb = (wb + 15) / 16 * 16;
-  P.warp_bytes = (int)wb;
-  const size_t smem = (size_t)wb * kWarps;
+  const int W = plan(P, smax, Rp, hist_smem);
+  void (*kern)(const Params) = W == 16 ? wfa2_kernel<16> : wfa2_kernel<32>;
+  const long per_block = (long)kWarps * (32 / W);
+  const size_t smem = (size_t)P.pair_bytes * per_block;
   cudaError_t e = cudaFuncSetAttribute(
-      wfa2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const long blocks = (n + kWarps - 1) / kWarps;
-  wfa2_kernel<<<(unsigned)blocks, 32 * kWarps, smem,
-                static_cast<cudaStream_t>(stream)>>>(P);
+  const long blocks = (n + per_block - 1) / per_block;
+  kern<<<(unsigned)blocks, 32 * kWarps, smem,
+         static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
+}
+
+// The launch facts of K1 at (smax, Rp, hist_smem) into out[6]
+// (ops/_build.py INFO_KEYS).
+int aim_wfa_info(int smax, int Rp, int hist_smem, int *out) {
+  if (smax < 0 || smax > 1023 || Rp <= 0 || Rp % 16)
+    return (int)cudaErrorInvalidValue;
+  Params P;
+  const int W = plan(P, smax, Rp, hist_smem);
+  return aimband::band_info(W == 16 ? wfa2_kernel<16> : wfa2_kernel<32>,
+                            (size_t)P.pair_bytes * kWarps * (32 / W), 32 / W,
+                            out);
 }
 
 const char *aim_cuda_error_string(int code) {

@@ -8,34 +8,42 @@
 // the sizes change, against K1:
 //
 //   * History.  The m/i/d offsets [3][smax+1][K] int16 are 3.0 MB a pair at
-//     smax 500 (10 kbp, e = 1 %), so they always live in a global scratch
-//     the wrapper allocates ([n][3][smax+1][K]); the TPU kernel's on-chip
-//     ring and its row DMAs have no counterpart here.
+//     smax 500 (10 kbp, e = 1 %), so they live in a global scratch the
+//     wrapper allocates ([n][3][smax+1][K], sized for the non-adaptive
+//     config, whose band fills K); only each level's band is written, a
+//     few hundred bytes a level at the adaptive config.  The TPU kernel's
+//     on-chip ring and its row DMAs have no counterpart here.
 //   * Sequences.  Both rows are staged in shared memory as they arrive --
 //     2-bit codes 16 a 32-bit word, or raw bytes 4 a word -- with three
 //     spare words: 2.5 KB a sequence at 10 kbp packed, 10 KB as bytes.
-//     With klo/khi/flags (12 B a level) a warp needs 11 KB at the 10 kbp
-//     config (26 KB as bytes) and at most 45 KB (16 kbp raw bytes at smax
-//     1023), so a block of 4 warps opts in to up to 180 KB of dynamic
+//     With the band word (4 B a level) a warp needs 7 KB at the 10 kbp
+//     config (22 KB as bytes) and at most 37 KB (16 kbp raw bytes at smax
+//     1023), so a block of 4 warps opts in to up to 148 KB of dynamic
 //     shared memory.
-//   * Extend.  A match run is about 100 bases at e = 1 %, so the extend
-//     compares a 64-bit window at a time (32 packed bases or 8 bytes):
-//     XOR, then __ffsll for the first differing base.  Records do not
-//     depend on the word layout (the reference's packed and byte layouts
-//     give equal records), so both layouts run this one kernel.
+//   * Extend.  A match run is about 100 bases at e = 1 %; wfa.cuh's extend
+//     compares a 64-bit window at a time (32 packed bases or 8 bytes), and
+//     both word layouts run this one kernel.
 //
-// What bounds it on this card: the forward walks all K diagonals of every
-// level it reaches (K = 1001 at smax 500, 32 a lane) and writes each
-// level's three history rows, 6 KB, to device memory: up to 3 MB a pair,
-// so the history traffic, not arithmetic, is the floor; the extend's
-// windows come from shared memory.  Bounds come from the lengths, never
-// from the data: an extend stops at min(tlen, plen + k).
+// What bounds it on this card: neither bytes nor arithmetic come near the
+// card's rates.  A pair is a chain of ~430 dependent levels at 10 kbp (e =
+// 1 %); a lone warp spends ~1.3 us a level (measured, NVIDIA H100, with
+// tools/row_profile.py), the instructions of the band's passes, the
+// extend's windows and the warp reductions, and the walk a round of
+// history loads a step.  The first design swept all K = 1001 diagonals of
+// every level in five passes and wrote full-K history rows -- ~107 times
+// the live cells of the adaptive config -- and a lone warp spent ~13 us a
+// level in the loads of those passes.  Now each pass and each history
+// store covers only the level's live band (9.5 diagonals on average at
+// the adaptive 10 kbp config, one step a lane), and the non-adaptive
+// config, whose band fills K, does no more than before.  Bounds come from
+// the lengths, never from the data: an extend stops at min(tlen, plen + k).
 
 #include "wfa.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // pairs a block (WARPS in ops/wfa_long.py)
+// pairs a block (WARPS in ops/wfa_long.py)
+constexpr int kWarps = aimband::kWarps;
 
 struct Params {
   const uint8_t *pats, *txts;
@@ -52,17 +60,6 @@ struct Params {
   int warp_bytes;    // shared memory per warp
 };
 
-// 64 bits of a staged sequence from base `pos` on (bits of later bases
-// above); w holds at least two words past the one with base pos.
-__device__ __forceinline__ uint64_t window(const uint32_t *w, int pos,
-                                           int bsh) {
-  const int bit = pos << bsh;
-  const int i = bit >> 5, s = bit & 31;
-  const uint64_t lo = (uint64_t)w[i] | ((uint64_t)w[i + 1] << 32);
-  if (s == 0) return lo;
-  return (lo >> s) | ((uint64_t)w[i + 2] << (64 - s));
-}
-
 __global__ void __launch_bounds__(32 * kWarps) wfa_long_kernel(const Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -74,10 +71,8 @@ __global__ void __launch_bounds__(32 * kWarps) wfa_long_kernel(const Params P) {
   const int S1 = smax + 1;
   unsigned char *base = smem + (size_t)warp * P.warp_bytes;
   aimwfa::Levels S;
-  S.KL = reinterpret_cast<int *>(base);
-  S.KH = S.KL + S1;
-  S.FL = S.KH + S1;
-  uint32_t *sp = reinterpret_cast<uint32_t *>(S.FL + S1);
+  S.LV = reinterpret_cast<int *>(base);
+  uint32_t *sp = reinterpret_cast<uint32_t *>(S.LV + S1);
   uint32_t *st = sp + P.seq_words;
   S.Hm = P.scratch + pair * (3L * S1 * K);
   S.Hi = S.Hm + (long)S1 * K;
@@ -87,41 +82,29 @@ __global__ void __launch_bounds__(32 * kWarps) wfa_long_kernel(const Params P) {
   // inside the staged rows.
   const int plen = min(P.plens[pair], R), tlen = min(P.tlens[pair], R);
 
-  // ---- stage the pair's bytes as they are, zero past the input width ----
-  {
-    const uint8_t *gp = P.pats + pair * P.width;
-    const uint8_t *gt = P.txts + pair * P.width;
-    uint8_t *bp = reinterpret_cast<uint8_t *>(sp);
-    uint8_t *bt = reinterpret_cast<uint8_t *>(st);
-    for (int j = lane; j < 4 * P.seq_words; j += 32) {
-      bp[j] = j < P.width ? gp[j] : 0;
-      bt[j] = j < P.width ? gt[j] : 0;
-    }
-  }
-  // staged words are visible to the warp after the forward's first
-  // __syncwarp, before any extend reads them
-
-  const int step = 64 >> bsh;  // bases a window
-  auto extend = [&](int k, int m) {
-    const int lo_b = k > 0 ? k : 0;
-    const int hi_b = max(min(tlen, plen + k), 0);
-    if (m < lo_b || m >= hi_b) return m;
-    int h = m;
-    for (;;) {
-      const uint64_t d = window(st, h, bsh) ^ window(sp, h - k, bsh);
-      if (d) {
-        h += (__ffsll((long long)d) - 1) >> bsh;
-        break;
-      }
-      h += step;
-      if (h >= hi_b) break;
-    }
-    return min(h, hi_b);
-  };
+  aimwfa::stage_row<32>(sp, P.pats + pair * P.width, P.width, P.seq_words,
+                        lane);
+  aimwfa::stage_row<32>(st, P.txts + pair * P.width, P.width, P.seq_words,
+                        lane);
+  const aimwfa::WindowExtend extend{sp, st, plen, tlen, bsh};
   const aimwfa::Costs C{smax, K, P.x, P.go, P.ge, P.adaptive};
-  const int score = aimwfa::forward(C, S, plen, tlen, lane, extend);
-  aimwfa::write_records(C, S, plen, tlen, score, P.backtrace != 0,
-                        P.rec + pair * (long)(smax + 4), lane);
+  const int score = aimwfa::forward<32>(C, S, plen, tlen, true, lane,
+                                        extend);
+  aimwfa::write_records<32>(C, S, plen, tlen, score, P.backtrace != 0, true,
+                            P.rec + pair * (long)(smax + 4), lane);
+}
+
+// Sizes P's shared memory from smax, R and the layout; returns a block's.
+size_t plan(Params &P, int smax, int R, int packed) {
+  P.smax = smax;
+  P.K = 2 * smax + 1;
+  P.R = R;
+  P.bsh = packed ? 1 : 3;
+  const int bases_per_word = packed ? 16 : 4;
+  P.seq_words = (R + 2 + bases_per_word - 1) / bases_per_word + 3;
+  const long wb = 4L * (smax + 1) + 8L * P.seq_words;
+  P.warp_bytes = (int)((wb + 15) / 16 * 16);
+  return (size_t)P.warp_bytes * kWarps;
 }
 
 }  // namespace
@@ -136,7 +119,7 @@ int aim_wfa_long_forward(const void *pats, const void *txts,
                          int smax, int R, int x, int go, int ge, int adaptive,
                          int backtrace, void *stream) {
   if (n <= 0) return 0;
-  if (smax < 0 || R <= 0 || width <= 0 || scratch == nullptr)
+  if (smax < 0 || smax > 1023 || R <= 0 || width <= 0 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   Params P;
   P.pats = static_cast<const uint8_t *>(pats);
@@ -147,21 +130,12 @@ int aim_wfa_long_forward(const void *pats, const void *txts,
   P.scratch = static_cast<int16_t *>(scratch);
   P.n = n;
   P.width = width;
-  P.bsh = packed ? 1 : 3;
-  P.smax = smax;
-  P.K = 2 * smax + 1;
-  P.R = R;
   P.x = x;
   P.go = go;
   P.ge = ge;
   P.adaptive = adaptive;
   P.backtrace = backtrace;
-  const int bases_per_word = packed ? 16 : 4;
-  P.seq_words = (R + 2 + bases_per_word - 1) / bases_per_word + 3;
-  long wb = 12L * (smax + 1) + 8L * P.seq_words;
-  wb = (wb + 15) / 16 * 16;
-  P.warp_bytes = (int)wb;
-  const size_t smem = (size_t)wb * kWarps;
+  const size_t smem = plan(P, smax, R, packed);
   cudaError_t e = cudaFuncSetAttribute(
       wfa_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -169,6 +143,15 @@ int aim_wfa_long_forward(const void *pats, const void *txts,
   wfa_long_kernel<<<(unsigned)blocks, 32 * kWarps, smem,
                     static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
+}
+
+// The launch facts of K5 at (smax, R, packed) into out[6] (ops/_build.py
+// INFO_KEYS).
+int aim_wfa_long_info(int smax, int R, int packed, int *out) {
+  if (smax < 0 || smax > 1023 || R <= 0) return (int)cudaErrorInvalidValue;
+  Params P;
+  const size_t smem = plan(P, smax, R, packed);
+  return aimband::band_info(wfa_long_kernel, smem, 1, out);
 }
 
 }  // extern "C"

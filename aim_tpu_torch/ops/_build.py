@@ -122,6 +122,11 @@ def declare(lib):
     lib.aim_wfa2_forward.argtypes = [vp, vp, vp, vp, vp, vp, cl,
                                      ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                      ci, vp]
+    # smax Rp hist_smem (K1) or smax R packed (K5), then the int[6] of
+    # INFO_KEYS
+    for fn in (lib.aim_wfa_info, lib.aim_wfa_long_info):
+        fn.restype = ci
+        fn.argtypes = [ci] * 3 + [vp]
     # pointers, n, then width packed R C L NRL DS, the costs, the flags
     # check_ovf backtrace planes_smem, and the stream
     lib.aim_nw_forward.restype = ci

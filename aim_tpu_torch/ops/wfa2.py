@@ -41,10 +41,12 @@ from aim_tpu_torch.ops.common import check_pair_tensors, round_up
 NULL = -16384       # int16 offset sentinel (reference OFFSET_NULL_16)
 BIG = 2 ** 20       # "infinity" of the adaptive-reduce min/max
 OP_M, OP_X, OP_I, OP_D = 0, 1, 2, 3
-# CUDA kernel geometry: one warp per pair, WARPS per block (kWarps in
-# csrc/wfa2.cu); the score history lives in shared memory while a block's
-# share fits.
+# CUDA kernel geometry (csrc/wfa2.cu): WARPS warps a block (kWarps), two
+# pairs a warp where all K = 2*smax+1 diagonals fit in a 16-lane segment,
+# else one; the score history lives in shared memory while a block's share
+# fits.
 WARPS = 4
+SEGMENT_LANES = 16
 SMEM_HIST_LIMIT = 48 * 1024
 REF_CHUNK = 4096    # pairs per step of the plain version
 
@@ -101,19 +103,30 @@ def hist_bytes_per_pair(cfg: AlignConfig) -> int:
     return 3 * (smax + 1) * K * 2
 
 
-def warp_smem_bytes(cfg: AlignConfig, hist_in_smem: bool) -> int:
-    """Shared memory of one warp (pair) in csrc/wfa2.cu: klo/khi/flags per
-    level, the unpacked pattern and text, and (optionally) the history.
-    The kernel's host function computes the same layout."""
-    smax, K, Rp = _geometry(cfg)
-    b = 12 * (smax + 1) + 2 * Rp
+def pairs_per_warp(cfg: AlignConfig) -> int:
+    """Pairs a warp of csrc/wfa2.cu: 32 / 16 where K fits in a segment."""
+    _, K, _ = _geometry(cfg)
+    return 32 // SEGMENT_LANES if K <= SEGMENT_LANES else 1
+
+
+def pair_smem_bytes(cfg: AlignConfig, hist_in_smem: bool) -> int:
+    """Shared memory of one pair in csrc/wfa2.cu: the band word a level,
+    the pattern and text staged as 32-bit words (room for raw bytes, and
+    three spare words each), and (optionally) the history.  The kernel's
+    host function computes the same layout."""
+    smax, _, Rp = _geometry(cfg)
+    b = 4 * (smax + 1) + 8 * (Rp // 4 + 3)
     if hist_in_smem:
         b += hist_bytes_per_pair(cfg)
     return round_up(b, 16)
 
 
+def block_smem_bytes(cfg: AlignConfig, hist_in_smem: bool) -> int:
+    return WARPS * pairs_per_warp(cfg) * pair_smem_bytes(cfg, hist_in_smem)
+
+
 def hist_in_smem(cfg: AlignConfig) -> bool:
-    return WARPS * warp_smem_bytes(cfg, True) <= SMEM_HIST_LIMIT
+    return block_smem_bytes(cfg, True) <= SMEM_HIST_LIMIT
 
 
 def device_bytes_per_pair(cfg: AlignConfig) -> int:
@@ -162,23 +175,25 @@ def _next_mismatch(pats, txts, plens, tlens, smax, K, Rp):
 
 
 def wfa2_reference(pats, txts, plens, tlens, *, cfg: AlignConfig,
-                   packed: bool = False):
+                   packed: bool = False, stats: dict | None = None):
     """Plain PyTorch WFA2 forward + level-walk backtrace on any device.
 
     Same inputs and records as ``wfa_forward2``.  Records are a per-pair
     function, so the batch is processed in chunks of REF_CHUNK pairs to
-    bound the [n, K, Rp] next-mismatch table."""
+    bound the [n, K, Rp] next-mismatch table.  ``stats``, where given,
+    gathers the work the forward did (``wfa_records``)."""
     n = pats.shape[0]
     smax = cfg.max_score
     out = torch.zeros((n, smax + 4), dtype=torch.int32, device=pats.device)
     for lo in range(0, n, REF_CHUNK):
         hi = min(n, lo + REF_CHUNK)
         out[lo:hi] = _reference_chunk(pats[lo:hi], txts[lo:hi],
-                                      plens[lo:hi], tlens[lo:hi], cfg, packed)
+                                      plens[lo:hi], tlens[lo:hi], cfg, packed,
+                                      stats)
     return out
 
 
-def _reference_chunk(pats, txts, plens, tlens, cfg, packed):
+def _reference_chunk(pats, txts, plens, tlens, cfg, packed, stats=None):
     smax, K, Rp = _geometry(cfg)
     n = pats.shape[0]
     if packed:
@@ -193,15 +208,22 @@ def _reference_chunk(pats, txts, plens, tlens, cfg, packed):
         ext = nm.gather(2, m.clamp(0, Rp - 1).long()[..., None])[..., 0]
         return torch.where(do_ext & (m < Rp), ext, m)
 
-    return wfa_records(pl, tl, cfg, extend)
+    return wfa_records(pl, tl, cfg, extend, stats)
 
 
-def wfa_records(pl, tl, cfg, extend):  # noqa: C901
+def wfa_records(pl, tl, cfg, extend, stats=None):  # noqa: C901
     """The WFA recursion and level-walk backtrace of one pair batch, shared
     by K1's and K5's plain versions: ``pl``/``tl`` [n] int32 lengths;
     ``extend(m, do_ext)`` returns the offsets [n, K] of the diagonals
     ``do_ext`` marks advanced to their first mismatch, the others as
-    they are.  Returns records [n, smax+4] int32."""
+    they are.  Returns records [n, smax+4] int32.
+
+    ``stats``, where given, gathers over the levels each pair reaches (up
+    to its end or overflow) whose band exists: ``levels`` their count,
+    ``live_cells`` the diagonals of their bands [klo, khi] after the
+    adaptive reduce, ``max_width`` the widest band, ``ext_bases`` the
+    bases the extends matched; each count is added to what ``stats``
+    already holds."""
     smax = cfg.max_score
     K = 2 * smax + 1
     x, go, ge = cfg.mismatch, cfg.gap_o, cfg.gap_e
@@ -279,6 +301,16 @@ def wfa_records(pl, tl, cfg, extend):  # noqa: C901
             fl = torch.where(nullify, fl | 0b1110, fl)
             skl[s], skh[s], sfl[s] = kl, kh, fl
             m_null = m_null | nullify
+
+        if stats is not None:
+            live = active & ((fl & 1) == 1)
+            width = torch.where(live, kh - kl + 1, 0)
+            for key, v in (("levels", int(live.sum())),
+                           ("live_cells", int(width.sum())),
+                           ("ext_bases", int((offi - m).sum()))):
+                stats[key] = stats.get(key, 0) + v
+            stats["max_width"] = max(stats.get("max_width", 0),
+                                     int(width.max()) if n else 0)
 
         # end reached
         m_at_ak = torch.where(ak_in, offi.gather(1, ak_col)[:, 0], 0)
@@ -501,3 +533,12 @@ def wfa_forward2(pats, txts, plens, tlens, *, cfg: AlignConfig,
                            f"{_build.error_string(rc)} (cudaError {rc})")
     launch_count += 1
     return rec
+
+
+def kernel_info(cfg: AlignConfig) -> dict:
+    """What csrc/wfa2.cu runs at ``cfg`` on the card (``_build.INFO_KEYS``:
+    registers, spill bytes, shared memory and resident blocks an SM, pairs a
+    warp)."""
+    from aim_tpu_torch.ops import _build
+    smax, _, Rp = _geometry(cfg)
+    return _build.kernel_info("wfa", smax, Rp, int(hist_in_smem(cfg)))

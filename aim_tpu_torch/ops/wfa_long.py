@@ -121,10 +121,10 @@ def seq_words(cfg: AlignConfig, packed: bool) -> int:
 
 
 def warp_smem_bytes(cfg: AlignConfig, packed: bool) -> int:
-    """Shared memory of one warp (pair) in csrc/wfa_long.cu: klo/khi/flags
-    per level and the two staged sequences.  The kernel's host function
-    computes the same layout."""
-    return round_up(12 * (cfg.max_score + 1) + 8 * seq_words(cfg, packed), 16)
+    """Shared memory of one warp (pair) in csrc/wfa_long.cu: the band word
+    (klo, khi, flags) a level and the two staged sequences.  The kernel's
+    host function computes the same layout."""
+    return round_up(4 * (cfg.max_score + 1) + 8 * seq_words(cfg, packed), 16)
 
 
 def device_bytes_per_pair(cfg: AlignConfig) -> int:
@@ -189,10 +189,12 @@ def _windowed_extend(pat, txt, pl, tl, kvec):
 
 
 def wfa_long_reference(pats, txts, plens, tlens, *, cfg: AlignConfig,
-                       packed: bool = False):
+                       packed: bool = False, stats: dict | None = None):
     """Plain PyTorch long-read WFA forward + level-walk backtrace on any
     device.  Same inputs and records as ``wfa_forward_long``; the batch
-    runs in chunks whose offset history stays under REF_HIST_BYTES."""
+    runs in chunks whose offset history stays under REF_HIST_BYTES.
+    ``stats``, where given, gathers the work the forward did
+    (``wfa2.wfa_records``)."""
     n = pats.shape[0]
     smax = cfg.max_score
     K = 2 * smax + 1
@@ -207,7 +209,7 @@ def wfa_long_reference(pats, txts, plens, tlens, *, cfg: AlignConfig,
         ext = _windowed_extend(_codes(pats[lo:hi], packed, width),
                                _codes(txts[lo:hi], packed, width), pl, tl,
                                kvec)
-        out[lo:hi] = wfa2.wfa_records(pl, tl, cfg, ext)
+        out[lo:hi] = wfa2.wfa_records(pl, tl, cfg, ext, stats)
     return out
 
 
@@ -254,3 +256,12 @@ def wfa_forward_long(pats, txts, plens, tlens, *, cfg: AlignConfig,
                            f"{_build.error_string(rc)} (cudaError {rc})")
     launch_count += 1
     return rec
+
+
+def kernel_info(cfg: AlignConfig, packed: bool = True) -> dict:
+    """What csrc/wfa_long.cu runs at ``cfg`` on the card
+    (``_build.INFO_KEYS``: registers, spill bytes, shared memory and
+    resident blocks an SM, pairs a warp)."""
+    from aim_tpu_torch.ops import _build
+    return _build.kernel_info("wfa_long", cfg.max_score, cfg.read_size,
+                              int(packed))

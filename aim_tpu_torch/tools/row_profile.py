@@ -1,10 +1,15 @@
-"""Where the NW band kernels spend a text row on the card (GPU only).
+"""Where the band and wavefront kernels spend their time on the card (GPU
+only).
 
-    python -m aim_tpu_torch.tools.row_profile [--sass] [--stamps] [--out FILE]
+    python -m aim_tpu_torch.tools.row_profile [--sass] [--stamps]
+        [--only band|wfa] [--times] [--out FILE]
 
-Three readings of K6, the streamed forward (csrc/nwswg_long.cu), at the
+Readings of K6, the streamed forward (csrc/nwswg_long.cu), at the
 streamed tier's timing config (`nw -l 4096 -e 0.01 -b --variant hbm`,
-seed 1), and of K2 (csrc/nw.cu) at `nw -l 100 -e 0.01 -b`:
+seed 1), and of K2 (csrc/nw.cu) at `nw -l 100 -e 0.01 -b` (``--only
+band``), and of K5 (csrc/wfa_long.cu) at `wfa -l 10000 -e 0.01 -b -r
+--variant hbm` and K1 (csrc/wfa2.cu) at `wfa -l 100 -e 0.01 -b -r`
+(``--only wfa``):
 
   1. scaling: the kernel's time (CUDA events) at pair counts from one warp
      a warp scheduler (4 pairs a block on 132 SMs) to several waves.  If a
@@ -23,6 +28,17 @@ seed 1), and of K2 (csrc/nw.cu) at `nw -l 100 -e 0.01 -b`:
      compiler may move arithmetic across a stamp, and a load's latency
      shows where its value is first used, so the parts are approximate;
      their sum is not.
+  4. band (K5, K1): the live band the plain version's forward keeps
+     (``wfa2.wfa_records``' stats): levels with a band a pair, their mean
+     and widest band [klo, khi], live (level, diagonal) cells and matched
+     bases a pair, beside the 2*smax+1 diagonals a level of every level a
+     pair reaches.
+
+``--times`` prints only the kernel times that compare two trees of the
+port (K1 on 16,384 pairs; K5 on 1,024 pairs adaptive and non-adaptive,
+and on the 8,192 pairs of chip_smoke.py's 10 kbp CLI run in the CLI's
+difficulty order); it drives the kernels through their public wrappers
+alone, so it runs unchanged from the root of an older tree.
 
 Each reading prints one JSON line (and appends it to ``--out``).
 """
@@ -42,7 +58,7 @@ import torch
 
 from aim_tpu_torch import datagen
 from aim_tpu_torch.config import derive_config
-from aim_tpu_torch.ops import _build, nw, nwswg_long
+from aim_tpu_torch.ops import _build, nw, nwswg_long, wfa2, wfa_long
 from aim_tpu_torch.ops.common import pack_seqs, to_device_batch
 from aim_tpu_torch.tools import timing
 
@@ -50,6 +66,11 @@ SMS = 132
 K6_COUNTS = (4, 4 * SMS, 8 * SMS, 16 * SMS, 24 * SMS, 1024, 2048, 4096,
              8192)
 K2_COUNTS = (4 * SMS, 16 * SMS, 40 * SMS, 16384)
+K5_COUNTS = (4, 4 * SMS, 1024, 4096, 8192)
+K1_COUNTS = (4 * SMS, 16 * SMS, 40 * SMS, 16384)
+K5_BAND_PAIRS = 16   # the plain version's pairs for the band reading
+K1_BAND_PAIRS = 2048
+LONG_CLI_PAIRS = 8192  # chip_smoke.py's 10 kbp CLI run (seed 0)
 
 # (name, anchor, where): a stamp closes the part that ends at the anchor
 # line (inserted before it, or after it with where = "after").  Anchors of
@@ -120,10 +141,101 @@ def scaling(dev, out):
                "ms": s * 1e3, "us_per_row": s * 1e6 / int(tl.max())}, out)
 
 
+def wfa_batch(length, n, dev, seed=1, **kw):
+    """(cfg, device tensors, packed) of n generated pairs of `wfa -l length
+    -e 0.01 -b -r` (--variant hbm at 10 kbp), 2-bit packed."""
+    cfg = derive_config("wfa", length, 0.01, backtrace=True, adaptive=True,
+                        variant="hbm" if length > 1000 else "vmem")
+    cfg = cfg.replace(**kw)
+    p, t, pl, tl = datagen.generate_pairs(n, length, 0.01,
+                                          read_size=cfg.read_size, seed=seed)
+    pp, pt, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
+    return cfg, to_device_batch(pp, pt, pl, tl, dev), packed
+
+
+def _wfa_fn(cfg):
+    """(launch counter name, module) of the kernel that serves cfg."""
+    return ("wfa_long", wfa_long) if cfg.read_size > 1000 else ("wfa", wfa2)
+
+
+def _wfa_time(cfg, args, packed):
+    mod = _wfa_fn(cfg)[1]
+    fwd = mod.wfa_forward_long if mod is wfa_long else mod.wfa_forward2
+    s = timing.best_of(lambda: fwd(*args, cfg=cfg, packed=packed),
+                       device=args[0].device, min_anchor_s=1e-6)
+    rec = fwd(*args, cfg=cfg, packed=packed)
+    sc = rec[:, cfg.max_score + 3].clamp(max=cfg.max_score).long() + 1
+    info = mod.kernel_info(cfg) if hasattr(mod, "kernel_info") else {}
+    return s * 1e3, float(sc.float().mean()), info
+
+
+def wfa_scaling(dev, out):
+    """K5's and K1's time by pair count; K5 also without backtrace and
+    non-adaptive."""
+    rows = [(10000, n, {}) for n in K5_COUNTS] + [
+        (10000, 1024, {"backtrace": False}),
+        (10000, 1024, {"adaptive": False})] + [
+        (100, n, {}) for n in K1_COUNTS]
+    for length, n, kw in rows:
+        cfg, args, packed = wfa_batch(length, n, dev, **kw)
+        ms, levels, info = _wfa_time(cfg, args, packed)
+        _emit({"reading": "scaling", "kernel": _wfa_fn(cfg)[0], "pairs": n,
+               "read_size": cfg.read_size, "max_score": cfg.max_score,
+               "adaptive": cfg.adaptive, "backtrace": cfg.backtrace,
+               "ms": ms, "levels_reached_per_pair": levels,
+               "us_per_level": ms * 1e3 / levels, **info}, out)
+
+
+def wfa_band(dev, out):
+    """The live band of the plain version's forward, beside the K
+    diagonals a level of every level reached."""
+    for length, n, kw in ((10000, K5_BAND_PAIRS, {}),
+                          (10000, K5_BAND_PAIRS, {"adaptive": False}),
+                          (100, K1_BAND_PAIRS, {})):
+        cfg, args, packed = wfa_batch(length, n, dev, **kw)
+        name, mod = _wfa_fn(cfg)
+        ref = (mod.wfa_long_reference if mod is wfa_long
+               else mod.wfa2_reference)
+        st = {}
+        rec = ref(*args, cfg=cfg, packed=packed, stats=st)
+        reached = int((rec[:, cfg.max_score + 3].clamp(max=cfg.max_score)
+                       + 1).sum())
+        K = 2 * cfg.max_score + 1
+        _emit({"reading": "band", "kernel": name, "pairs": n,
+               "read_size": cfg.read_size, "max_score": cfg.max_score,
+               "adaptive": cfg.adaptive,
+               "levels_reached_per_pair": reached / n,
+               "band_levels_per_pair": st["levels"] / n,
+               "mean_width": st["live_cells"] / max(st["levels"], 1),
+               "max_width": st["max_width"],
+               "live_cells_per_pair": st["live_cells"] / n,
+               "ext_bases_per_pair": st["ext_bases"] / n,
+               "full_k_cells_per_pair": K * reached / n}, out)
+
+
+def wfa_times(dev, out):
+    """The kernel times two trees are compared on (module docstring)."""
+    from aim_tpu_torch import api
+    rows = [wfa_batch(100, 16384, dev), wfa_batch(10000, 1024, dev),
+            wfa_batch(10000, 1024, dev, adaptive=False)]
+    cfg = wfa_batch(10000, 4, dev)[0]
+    p, t, pl, tl = datagen.generate_pairs(LONG_CLI_PAIRS, 10000, 0.01,
+                                          read_size=cfg.read_size, seed=0)
+    o = api._difficulty_order(p, t, pl, tl)
+    pp, pt, packed = pack_seqs(p[o], t[o], pl[o], tl[o], cfg.read_size)
+    rows.append((cfg, to_device_batch(pp, pt, pl[o], tl[o], dev), packed))
+    for cfg, args, packed in rows:
+        ms, levels, info = _wfa_time(cfg, args, packed)
+        _emit({"reading": "times", "kernel": _wfa_fn(cfg)[0],
+               "pairs": len(args[2]),
+               "read_size": cfg.read_size, "adaptive": cfg.adaptive,
+               "ms": ms, "levels_reached_per_pair": levels, **info}, out)
+
+
 def ptxas(out):
     """Registers and spills a kernel instance from `nvcc -Xptxas -v`."""
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("nwswg_long.cu", "nw.cu"):
+        for src in ("nwswg_long.cu", "nw.cu", "wfa2.cu", "wfa_long.cu"):
             r = subprocess.run(
                 [_build._nvcc()] + _build.NVCC_FLAGS +
                 ["-Xptxas", "-v", "-c", os.path.join(_build.CSRC, src),
@@ -151,12 +263,13 @@ def ptxas(out):
                        **row}, out)
 
 
-SASS_FUNCS = ("fwd_kernel", "nw_seg_kernel")
+SASS_FUNCS = ("fwd_kernel", "nw_seg_kernel", "wfa_long_kernel",
+              "wfa2_kernel")
 
 
 def sass(out):
-    """Static instruction counts of the loops of K6's and K2's segmented
-    kernels in the built library (`cuobjdump -sass`): for each backward
+    """Static instruction counts of the loops of K6, K2's segmented kernels,
+    K5 and K1 in the built library (`cuobjdump -sass`): for each backward
     branch its span in instructions and the count of each opcode in it,
     the three largest loops a function."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -292,6 +405,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--only", choices=("band", "wfa"), default=None)
+    ap.add_argument("--times", action="store_true")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -302,12 +417,19 @@ def main(argv=None) -> int:
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}, a.out)
+    if a.times:
+        wfa_times(dev, a.out)
+        return 0
     ptxas(a.out)
     if a.sass:
         sass(a.out)
-    scaling(dev, a.out)
-    if a.stamps:
-        stamps(dev, a.out)
+    if a.only != "wfa":
+        scaling(dev, a.out)
+        if a.stamps:
+            stamps(dev, a.out)
+    if a.only != "band":
+        wfa_scaling(dev, a.out)
+        wfa_band(dev, a.out)
     return 0
 
 

@@ -15,9 +15,9 @@ before the last line:
               to 128), K4 (csrc/genasm.cu) on 15 (6 to 150 rows), 4096 seeded
               pairs each (4095 where neighbours in a warp differ: normal
               beside flagged, overflowing or edge pairs, the last warp
-              part-empty); each K2-K4 line names the kernel's path (pairs
-              a warp, windowed history); K5 (csrc/wfa_long.cu) on 8
-              long-read configs of 16 to 4096 pairs; K6/K7
+              part-empty; all of K1's); each K1-K4 line names the kernel's
+              path (pairs a warp, windowed history); K5 (csrc/wfa_long.cu)
+              on 8 long-read configs of 16 to 4096 pairs; K6/K7
               (csrc/nwswg_long.cu) on NW and SWG at planes 1, 2, 4 and 8,
               with and without backtrace, raw and packed, records of 256 to
               1024 lanes, flagged pairs, the raw two-plane shape the retry
@@ -48,9 +48,15 @@ before the last line:
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
               pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
               records compared once more at this, the CLI's launch shape;
-              K6 also on the first 1024 pairs of its chunk (the 4 kbp CLI
-              runs' size); K2's, K3's, K4's and K6's registers, spills,
-              shared memory and resident blocks an SM.
+              K5 also alone on the 8,192 pairs of the 10 kbp CLI run, in its
+              difficulty order; K6 also on the first 1024 pairs of its chunk
+              (the 4 kbp CLI runs' size); K1's, K2's, K3's, K4's, K5's and
+              K6's registers, spills, shared memory, resident blocks an SM
+              and pairs a warp.  The WFA bounds count the live (level,
+              diagonal) cells of the plain version's level extents and a
+              compare a 32-base window of matched bases; the lines also
+              give the operations the earlier count (every diagonal of
+              every level reached) gave.
   5. probes   the tooling path: `aim_tpu_torch.tools.microbench` drives the
               13 CUDA probes of csrc/probes.cu (M1's twelve, M2) with their
               launch counters at 0; each probe's output equal to its plain
@@ -121,6 +127,9 @@ FUZZ_SEED = 101
 # x 64 INT32 lanes x 1.98 GHz boost clock).
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9
+# device cycles of spin a timed call, ahead of the timed span (~0.1 ms at
+# the H100's clock: more than a wrapper's host work)
+SPIN_CYCLES_PER_CALL = 200_000
 
 
 def fail(msg):
@@ -165,7 +174,7 @@ def fuzz_batch(R, alphabet="ACGT"):
 
 
 def kernel_configs():
-    """(name, cfg, (pats, txts, plens, tlens)) of every K1 check: 4096
+    """(name, cfg, (pats, txts, plens, tlens)) of every K1 check: 4095
     seeded pairs each, made as tools/fuzz_kernels.py makes them
     (tests/util.py) or by aim_tpu_torch.datagen."""
     from aim_tpu_torch import datagen
@@ -204,7 +213,8 @@ def kernel_configs():
     out.append(("acgtn_R200_s35",
                 AlignConfig(algo="wfa", read_size=R, backtrace=True, **kw),
                 fuzz_batch(R, "ACGTN")))
-    return out
+    # an odd count: the last warp of the two-pairs-a-warp path half empty
+    return [(name, cfg, tuple(a[:4095] for a in b)) for name, cfg, b in out]
 
 
 def phase_kernel():
@@ -246,6 +256,7 @@ def phase_kernel():
               "read_size": cfg.read_size, "max_score": smax,
               "adaptive": cfg.adaptive, "backtrace": cfg.backtrace,
               "packed": packed, "hist_in_smem": wfa2.hist_in_smem(cfg),
+              "pairs_per_warp": wfa2.pairs_per_warp(cfg),
               "overflow_pairs": over, "record_rows_differ": rows,
               "max_abs_err": err, "score_bad": score_bad,
               "cigar_bad": cigar_bad})
@@ -1093,8 +1104,10 @@ def phase_main(smi, tmp):
 
 
 # int32 operations a cell or wavefront diagonal, the least each kernel's
-# recurrence needs (adds, mins and compares; no address arithmetic)
+# recurrence needs (adds, mins and compares; no address arithmetic); the
+# WFA extend adds one 64-bit compare a window of 32 matched bases
 CELL_OPS = {"nw": 8, "swg": 14, "genasm_word": 6, "wfa_diag": 10}
+WFA_WINDOW_BASES = 32
 
 
 def bound_ms(nbytes, ops):
@@ -1105,10 +1118,21 @@ def bound_ms(nbytes, ops):
                                        else "operations")
 
 
-def chunk_bound(name, cfg, args, rec):
+def wfa_ops(stats):
+    """int32 operations of a WFA forward over the live cells its plain
+    version's level extents held (``wfa2.wfa_records`` stats): the
+    recurrence on each live (level, diagonal) cell and a compare a window
+    of matched bases."""
+    return (CELL_OPS["wfa_diag"] * stats["live_cells"]
+            + stats["ext_bases"] // WFA_WINDOW_BASES)
+
+
+def chunk_bound(name, cfg, args, rec, stats=None):
     """(bound ms, bound_by, bytes, ops) of one kernel call on this chunk:
     each input read once, each output written once, and the recurrence's
-    int32 operations over the cells this data needs."""
+    int32 operations over the cells this data needs (for WFA, from the
+    plain version's ``stats`` on the same chunk; without them the bound is
+    the bytes' alone and ops is None)."""
     from aim_tpu_torch.ops import nw, nwswg_long as L
     pl = args[2].cpu().numpy().astype(np.int64)
     tl = args[3].cpu().numpy().astype(np.int64)
@@ -1116,9 +1140,7 @@ def chunk_bound(name, cfg, args, rec):
     inputs = 2 * n * args[0].shape[1] + 8 * n
     out = rec.numel() * rec.element_size()
     if name in ("wfa", "wfa_long"):
-        smax = cfg.max_score
-        s = np.minimum(rec[:, smax + 3].cpu().numpy().astype(np.int64), smax)
-        ops = CELL_OPS["wfa_diag"] * int(((s + 1) ** 2).sum())
+        ops = wfa_ops(stats) if stats is not None else None
     elif name in ("nw", "swg"):
         B = 2 * nw.band_geometry(cfg)[0] + 1
         ops = CELL_OPS[name] * B * int(tl.sum())
@@ -1137,7 +1159,7 @@ def chunk_bound(name, cfg, args, rec):
         flagged = ((rec[:, 0].cpu().numpy().astype(np.int32) >> 8) & 1)
         inputs = 16 * n + 5 * int(tl[flagged == 0].sum())
         ops = 0
-    ms, by = bound_ms(inputs + out, ops)
+    ms, by = bound_ms(inputs + out, ops or 0)
     return ms, by, inputs + out, ops
 
 
@@ -1157,6 +1179,10 @@ def phase_timing(reps=20):
         if warm:
             fn()
         torch.cuda.synchronize()
+        # the stream spins while the host enqueues the n calls, so that a
+        # kernel shorter than its wrapper's host work is timed on the card
+        # and not at the host's pace
+        torch.cuda._sleep(SPIN_CYCLES_PER_CALL * n)
         ev[0].record()
         for _ in range(n):
             fn()
@@ -1204,18 +1230,53 @@ def phase_timing(reps=20):
         # the plain version at 10 kbp takes tens of seconds: one call
         p_ms = timed(lambda: ref(*args, cfg=cfg, packed=packed),
                      2 if length == 100 else 1, warm=length == 100)
-        # the same chunk, the CLI's launch shape: kernel against plain
+        # the same chunk, the CLI's launch shape: kernel against plain;
+        # the WFA plain versions also count the live cells
         rec = fwd(*args, cfg=cfg, packed=packed)
         got = rec.cpu().numpy()
-        want = ref(*args, cfg=cfg, packed=packed).cpu().numpy()
+        stats = {} if name in ("wfa", "wfa_long") else None
+        kw = {"stats": stats} if stats is not None else {}
+        want = ref(*args, cfg=cfg, packed=packed, **kw).cpu().numpy()
         err = int(np.abs(got.astype(np.int64) - want).max())
-        bnd = chunk_bound(name, cfg, args, rec)
+        bnd = chunk_bound(name, cfg, args, rec, stats)
         # the redesigned kernels' registers, spills, shared memory and
         # resident blocks an SM, pairs a warp (CUDA's function attributes)
-        info = {"nw": nw, "swg": swg, "genasm": genasm}.get(name)
+        info = {"nw": nw, "swg": swg, "genasm": genasm, "wfa": wfa2,
+                "wfa_long": wfa_long}.get(name)
+        info = info.kernel_info(cfg) if info else {}
+        if stats is not None:
+            # the WFA bound's operations, counted two ways: over the live
+            # cells (the bound) and, as the bound once counted them, over
+            # every diagonal of every level a pair reaches, (score+1)^2 a
+            # pair
+            s_ = np.minimum(got[:, cfg.max_score + 3].astype(np.int64),
+                            cfg.max_score)
+            info.update(live_cells=stats["live_cells"],
+                        ext_bases=stats["ext_bases"],
+                        ops_all_diagonals=CELL_OPS["wfa_diag"]
+                        * int(((s_ + 1) ** 2).sum()))
         report(name, cfg, length, flags, len(pl), k_ms, p_ms, k_reps, err,
-               bnd, info.kernel_info(cfg) if info else None)
+               bnd, info)
         out[name] = (k_ms, p_ms, err) + bnd[:2]
+        if name == "wfa_long":
+            # K5 on the chunk the 10 kbp CLI run launches: its LONG_PAIRS
+            # pairs in the CLI's difficulty order, kernel only (the plain
+            # version would take minutes; the run's output is cmp-checked
+            # against the oracle in phase 3), the bound its bytes'
+            from aim_tpu_torch.api import _difficulty_order
+            p, t, pl, tl = datagen.generate_pairs(LONG_PAIRS, length, 0.01,
+                                                  read_size=cfg.read_size,
+                                                  seed=SEED)
+            o = _difficulty_order(p, t, pl, tl)
+            pp, pt, packed = pack_seqs(p[o], t[o], pl[o], tl[o],
+                                       cfg.read_size)
+            big = to_device_batch(pp, pt, pl[o], tl[o], DEVICE)
+            k_ms = timed(lambda: fwd(*big, cfg=cfg, packed=packed), 5)
+            rec = fwd(*big, cfg=cfg, packed=packed)
+            report(name, cfg, length, flags, LONG_PAIRS, k_ms, None, 5,
+                   None, chunk_bound(name, cfg, big, rec),
+                   wfa_long.kernel_info(cfg, packed))
+            del big, rec
 
     # K6 and K7 apart, on the streamed tier's canonical chunk: 4096 pairs of
     # `nw -l 4096 -e 0.01 -b --variant hbm`, at its routed plane count

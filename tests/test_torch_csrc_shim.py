@@ -23,9 +23,10 @@ import torch
 from aim_tpu_torch.config import AlignConfig
 from aim_tpu_torch.ops import (_build, common, genasm, nw, nwswg_long,
                                probes, swg, wfa2, wfa_long)
-from torch_cases import (CASES, GENASM_CASES, WFA_LONG_CASES, case,
-                         genasm_case, nwswg_case, nwswg_long_case,
-                         nwswg_records, torch_records, wfa_long_case)
+from torch_cases import (CASES, GENASM_CASES, K1_CASES, WFA_LONG_CASES,
+                         case, genasm_case, k1_case, nwswg_case,
+                         nwswg_long_case, nwswg_records, torch_records,
+                         wfa_long_case)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LAUNCH = re.compile(r"(\w+)\s*<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>"
@@ -100,15 +101,25 @@ def _records(n, cols, dtype=torch.int32):
     return torch.full((n, cols), -7, dtype=dtype)
 
 
-@pytest.mark.parametrize("name", CASES)
+# a history value above every real offset: a read of a cell outside the
+# band a level wrote wins the walk's and the compute's maxima
+POISON = 12345
+
+
+@pytest.mark.parametrize("name", CASES + K1_CASES)
 def test_wfa2_cu_matches_plain_version(lib, name):
-    cfg, p, t, pl, tl, packed = case(name)
+    """K1 (csrc/wfa2.cu) under the shim, two pairs a warp where K <= 16:
+    records equal to the plain version; a global history scratch starts
+    poisoned, and shared memory as the shim's 0xAB bytes."""
+    cfg, p, t, pl, tl, packed = (k1_case if name.startswith("k1_")
+                                 else case)(name)
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
         p, t, np.asarray(pl, np.int32), np.asarray(tl, np.int32))]
     smax, _, Rp = wfa2._geometry(cfg)
     in_smem = wfa2.hist_in_smem(cfg)
-    scratch = None if in_smem else torch.empty(
-        (len(pl), wfa2.hist_bytes_per_pair(cfg) // 2), dtype=torch.int16)
+    scratch = None if in_smem else torch.full(
+        (len(pl), wfa2.hist_bytes_per_pair(cfg) // 2), POISON,
+        dtype=torch.int16)
     got = _call(lib.aim_wfa2_forward, args, _records(len(pl), smax + 4),
                 scratch, int(packed), smax, Rp, cfg.mismatch, cfg.gap_o,
                 cfg.gap_e, int(cfg.adaptive), int(cfg.backtrace),
@@ -167,6 +178,49 @@ def test_nw_kernel_layout(lib, R, max_score):
                                         nw.plane_bytes_per_pair(cfg))
 
 
+# (R, MAX_SCORE) of K1's and K5's layout grids: K from 3 to 2047, on
+# either side of the 16-lane segment at MAX_SCORE 7 and 8
+WFA_LAYOUT_GRID = [(R, s) for R in (24, 112, 248) for s in (1, 5, 7, 8, 40,
+                                                           79)]
+WFA_LONG_LAYOUT_GRID = [(R, s) for R in (1000, 10112, 16376)
+                        for s in (50, 500, 1023)]
+
+
+def _info(fn, *ints):
+    out = (ctypes.c_int * len(_build.INFO_KEYS))()
+    assert fn(*ints, out) == 0
+    return dict(zip(_build.INFO_KEYS, out))
+
+
+@pytest.mark.parametrize("R,max_score", WFA_LAYOUT_GRID)
+def test_wfa2_kernel_layout(lib, R, max_score):
+    """ops/wfa2.py's mirrors of csrc/wfa2.cu's sizing: pairs a warp (two
+    where K <= 16) and a block's shared memory as aim_wfa_info reports
+    them, the history in shared memory (where it fits) and not."""
+    cfg = AlignConfig(algo="wfa", read_size=R, max_score=max_score)
+    smax, K, Rp = wfa2._geometry(cfg)
+    assert wfa2.hist_in_smem(cfg) == (max_score < 40)
+    for in_smem in {wfa2.hist_in_smem(cfg), False}:
+        info = _info(lib.aim_wfa_info, smax, Rp, int(in_smem))
+        assert info["pairs_per_warp"] == wfa2.pairs_per_warp(cfg) == \
+            (2 if K <= 16 else 1)
+        assert info["smem_block_bytes"] == wfa2.block_smem_bytes(cfg,
+                                                                 in_smem)
+
+
+@pytest.mark.parametrize("R,max_score", WFA_LONG_LAYOUT_GRID)
+def test_wfa_long_kernel_layout(lib, R, max_score):
+    """ops/wfa_long.py's mirror of csrc/wfa_long.cu's shared memory, both
+    word layouts, within the card's 227 KB a block."""
+    cfg = AlignConfig(algo="wfa", read_size=R, max_score=max_score)
+    for packed in (True, False):
+        info = _info(lib.aim_wfa_long_info, max_score, R, int(packed))
+        assert info["pairs_per_warp"] == 1
+        assert info["smem_block_bytes"] == \
+            wfa_long.WARPS * wfa_long.warp_smem_bytes(cfg, packed) \
+            <= 227 * 1024
+
+
 @pytest.mark.parametrize("name", GENASM_CASES + ["r112_k7_bt"])
 def test_genasm_cu_matches_plain_version(lib, name):
     cfg, p, t, pl, tl = genasm_case(name)
@@ -187,11 +241,13 @@ def test_genasm_cu_matches_plain_version(lib, name):
 @pytest.mark.parametrize("packed_ok", [True, False], ids=["packed", "bytes"])
 @pytest.mark.parametrize("name", WFA_LONG_CASES)
 def test_wfa_long_cu_matches_plain_version(lib, name, packed_ok):
+    """K5 (csrc/wfa_long.cu) under the shim, adaptive (a narrow band) and
+    not (the band fills K): records equal to the plain version, the
+    history scratch starting poisoned, as torch.empty may leave it."""
     cfg, p, t, pl, tl = wfa_long_case(name)
     args, packed = _tensors(p, t, pl, tl, cfg.read_size, packed_ok)
-    # the scratch starts as garbage, as torch.empty leaves it on the card
     scratch = torch.full((len(pl), wfa_long.hist_bytes_per_pair(cfg) // 2),
-                         12345, dtype=torch.int16)
+                         POISON, dtype=torch.int16)
     got = _call(lib.aim_wfa_long_forward, args,
                 _records(len(pl), cfg.max_score + 4), scratch, int(packed),
                 cfg.max_score, cfg.read_size, cfg.mismatch, cfg.gap_o,

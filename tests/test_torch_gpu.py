@@ -26,11 +26,11 @@ from aim_tpu_torch.ops import (common, genasm, genasm_long, nw, nw_xla,
                                wfa_long, wfa_xla)
 from aim_tpu_torch.tools import fuzz_kernels, microbench, timing
 from torch_cases import (CASES, DENSE_CASES, GENASM_CASES, GENASM_LONG_CASES,
-                         MAIN, NWSWG_CASES, NWSWG_LONG_CASES, NWSWG_LONG_WIDE,
-                         SAMPLE_N, WFA_LONG_CASES, case, datagen_batch,
-                         dense_batch, garbage_padded, genasm_case,
-                         genasm_long_case, nwswg_case, nwswg_long_case,
-                         nwswg_records, wfa_long_case)
+                         K1_CASES, MAIN, NWSWG_CASES, NWSWG_LONG_CASES,
+                         NWSWG_LONG_WIDE, SAMPLE_N, WFA_LONG_CASES, case,
+                         datagen_batch, dense_batch, garbage_padded,
+                         genasm_case, genasm_long_case, k1_case, nwswg_case,
+                         nwswg_long_case, nwswg_records, wfa_long_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "data", "sample-l100-e1-2K")
@@ -60,6 +60,116 @@ def test_cuda_kernel_matches_reference(cuda_device, name):
     args = common.to_device_batch(p, t, pl, tl, "cpu")
     want = wfa2.wfa2_reference(*args, cfg=cfg, packed=packed).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", K1_CASES)
+def test_cuda_k1_path_matches_reference(cuda_device, name):
+    """K1's paths on the card: two pairs a warp with neighbours that end
+    apart, the odd batch's half-empty last warp, K = 15 and 17, the global
+    history."""
+    cfg, p, t, pl, tl, packed = k1_case(name)
+    before = wfa2.launch_count
+    got = _kernel(cuda_device, cfg, p, t, pl, tl, packed)
+    assert wfa2.launch_count == before + 1
+    args = common.to_device_batch(p, t, pl, tl, "cpu")
+    want = wfa2.wfa2_reference(*args, cfg=cfg, packed=packed).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# a history value above every real offset: a read of a cell outside the
+# band a level wrote wins the walk's and the compute's maxima
+POISON = 12345
+
+
+def _wfa_poisoned(dev, mod, cfg, args, packed):
+    """K1 (with its history in the global scratch) or K5 launched as its
+    wrapper launches it, on a history scratch filled with POISON."""
+    from aim_tpu_torch.ops import _build
+    n = args[0].shape[0]
+    smax = cfg.max_score
+    rec = torch.full((n, smax + 4), -7, dtype=torch.int32, device=dev)
+    scratch = torch.full((n, mod.hist_bytes_per_pair(cfg) // 2), POISON,
+                         dtype=torch.int16, device=dev)
+    ptrs = [a.data_ptr() for a in args] + [rec.data_ptr(),
+                                           scratch.data_ptr()]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load()
+    if mod is wfa2:
+        rc = lib.aim_wfa2_forward(
+            *ptrs, n, args[0].shape[1], int(packed), smax,
+            wfa2._geometry(cfg)[2], cfg.mismatch, cfg.gap_o, cfg.gap_e,
+            int(cfg.adaptive), int(cfg.backtrace), 0, stream)
+    else:
+        rc = lib.aim_wfa_long_forward(
+            *ptrs, n, args[0].shape[1], int(packed), smax, cfg.read_size,
+            cfg.mismatch, cfg.gap_o, cfg.gap_e, int(cfg.adaptive),
+            int(cfg.backtrace), stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return rec.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["k1_global_s79", "k1_mixed_bt"] + [
+    f"{c}-{lay}" for c in WFA_LONG_CASES for lay in ("packed", "bytes")])
+def test_cuda_wfa_poisoned_history(cuda_device, name):
+    """K1 (history in the global scratch) and K5, adaptive (a narrow band)
+    and not (the band fills K), 2-bit packed and raw bytes: records equal
+    to the plain version on a history scratch that starts poisoned, so a
+    read of a cell outside the band a level wrote would show."""
+    if name.startswith("k1_"):
+        cfg, p, t, pl, tl, packed = k1_case(name)
+        mod = wfa2
+    else:
+        c, lay = name.rsplit("-", 1)
+        cfg, p, t, pl, tl = wfa_long_case(c)
+        mod = wfa_long
+        packed = False
+        if lay == "packed":
+            p, t, packed = common.pack_seqs(p, t, pl, tl, cfg.read_size)
+            if not packed:
+                pytest.skip("the batch does not 2-bit pack (its bytes run)")
+    args = common.to_device_batch(p, t, pl, tl, cuda_device)
+    ref = wfa2.wfa2_reference if mod is wfa2 else wfa_long.wfa_long_reference
+    want = ref(*common.to_device_batch(p, t, pl, tl, "cpu"), cfg=cfg,
+               packed=packed).numpy()
+    np.testing.assert_array_equal(
+        _wfa_poisoned(cuda_device, mod, cfg, args, packed), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,ppw", [("main_bt", 2), ("k1_s7_odd", 2),
+                                      ("k1_s8_odd", 1), ("r200_s25", 1),
+                                      ("k1_global_s79", 1)])
+def test_cuda_wfa_path(cuda_device, name, ppw):
+    """K1's launch on the card: two pairs a warp where K <= 16, shared
+    memory as ops/wfa2.py sizes it, at most 64 registers a thread, no
+    spills, and at least 8 blocks an SM at the main config."""
+    cfg = (k1_case if name.startswith("k1_") else case)(name)[0]
+    info = wfa2.kernel_info(cfg)
+    assert info["pairs_per_warp"] == ppw == wfa2.pairs_per_warp(cfg)
+    assert info["smem_block_bytes"] == wfa2.block_smem_bytes(
+        cfg, wfa2.hist_in_smem(cfg))
+    assert info["registers"] <= 64 and info["local_bytes"] == 0
+    if name == "main_bt":
+        assert info["blocks_per_sm"] >= 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "bytes"])
+def test_cuda_wfa_long_path(cuda_device, packed):
+    """K5's launch at the 10 kbp config: one pair a warp, shared memory as
+    ops/wfa_long.py sizes it, at most 64 registers, no spills, and at
+    least 7 blocks an SM on 2-bit packed input."""
+    cfg = wfa_long_case("l1000")[0].replace(read_size=10112, max_score=500)
+    info = wfa_long.kernel_info(cfg, packed)
+    assert info["pairs_per_warp"] == 1
+    assert info["smem_block_bytes"] == \
+        wfa_long.WARPS * wfa_long.warp_smem_bytes(cfg, packed)
+    assert info["registers"] <= 64 and info["local_bytes"] == 0
+    if packed:
+        assert info["blocks_per_sm"] >= 7
 
 
 @pytest.mark.gpu

@@ -21,7 +21,7 @@ from aim_tpu.ops import wfa_pallas_long as jref
 from aim_tpu_torch.ops import common, wfa2, wfa_long
 from torch_cases import (WFA_LONG_CASES, garbage_padded, torch_records,
                          wfa_long_case)
-from util import make_pair, pack
+from util import make_pair, pack, random_pairs
 
 BASE_10K = derive_config("wfa", 10000, 0.01, backtrace=True, adaptive=True,
                          variant="hbm")
@@ -83,6 +83,32 @@ def test_long_reference_equals_short_reference(adaptive):
     short = torch_records(wfa2.wfa2_reference, cfg, p, t, pl, tl, False)
     assert (short[:, 43] == 41).any() and (short[:, 43] <= 40).any()
     np.testing.assert_array_equal(_torch_records(cfg, p, t, pl, tl), short)
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_plain_versions_count_the_same_work(adaptive):
+    """The plain versions' ``stats`` (the live band the WFA bound and
+    tools/row_profile.py count): K1's next-mismatch table and K5's
+    windowed extend find the same levels, live cells and matched bases on
+    one batch, within K and the levels reached; gathering them changes no
+    record."""
+    cfg = AlignConfig(algo="wfa", read_size=248, max_score=40,
+                      backtrace=True, adaptive=adaptive)
+    p, t, pl, tl = pack(random_pairs(seed=13, n=24, max_len=240), 248)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        p, t, np.asarray(pl, np.int32), np.asarray(tl, np.int32))]
+    short, long_ = {}, {}
+    rec = wfa2.wfa2_reference(*args, cfg=cfg, stats=short).numpy()
+    np.testing.assert_array_equal(
+        wfa_long.wfa_long_reference(*args, cfg=cfg, stats=long_).numpy(),
+        rec)
+    np.testing.assert_array_equal(
+        wfa2.wfa2_reference(*args, cfg=cfg).numpy(), rec)
+    assert short == long_
+    reached = int((np.minimum(rec[:, 43], 40) + 1).sum())
+    assert 0 < short["levels"] <= reached
+    assert short["levels"] <= short["live_cells"] <= 81 * short["levels"]
+    assert 0 < short["max_width"] <= 81 and short["ext_bases"] > 0
 
 
 def test_records_decode_to_oracle_10kbp():

@@ -84,6 +84,59 @@ def garbage_padded(pats, txts, plens, tlens):
     return p, t
 
 
+# K1's paths side by side: two pairs a warp (K <= 16) with neighbours that
+# differ -- empty, tiny, overflowing and full-length pairs in one warp --
+# on an odd batch whose last warp is half empty, raw and packed, with and
+# without backtrace; K = 15 and 17 on either side of the 16-lane segment;
+# and the history in the global scratch (smax 79)
+K1_CASES = ["k1_mixed_bt", "k1_mixed_nobt", "k1_mixed_packed", "k1_s7_odd",
+            "k1_s8_odd", "k1_global_s79"]
+
+
+def k1_mixed_batch(n=61, seed=7, R=112):
+    """Datagen pairs at 100 bp with, by position, reversed texts (they
+    overflow smax 5), empty and one-base pairs and a text cut short, so
+    that neighbours in a warp end at different levels."""
+    p, t, pl, tl = datagen.generate_pairs(n, 100, 0.01, read_size=R,
+                                          seed=seed)
+    for i in range(n):
+        if i % 4 == 1:
+            t[i, :tl[i]] = t[i, :tl[i]][::-1]
+        elif i % 6 == 2:
+            pl[i] = tl[i] = 0
+        elif i % 6 == 4:
+            pl[i], tl[i] = 1, 1 + (i % 3 == 0)
+        elif i % 10 == 3:
+            tl[i] = max(0, tl[i] - 3)
+    pos = np.arange(R)
+    p = np.where(pos < pl[:, None], p, 0).astype(np.uint8)
+    t = np.where(pos < tl[:, None], t, 0).astype(np.uint8)
+    return p, t, pl, tl
+
+
+def k1_case(name):
+    """(cfg, pats, txts, plens, tlens, packed) of one named K1 path case."""
+    if name.startswith("k1_mixed"):
+        cfg = MAIN.replace(backtrace=not name.endswith("nobt"))
+        p, t, pl, tl = k1_mixed_batch()
+        if name.endswith("packed"):
+            p, t, ok = common.pack_seqs(p, t, pl, tl, cfg.read_size)
+            assert ok
+            return cfg, p, t, pl, tl, True
+        return cfg, p, t, pl, tl, False
+    if name in ("k1_s7_odd", "k1_s8_odd"):
+        cfg = MAIN.replace(max_score=int(name[4]))
+        p, t, pl, tl = datagen.generate_pairs(45, 100, 0.01, read_size=112,
+                                              seed=8)
+        t[::5] = t[::5, ::-1]  # overflowing pairs in the mix
+        return cfg, p, t, pl, tl, False
+    if name == "k1_global_s79":
+        cfg = MAIN.replace(max_score=79)
+        return (cfg, *datagen.generate_pairs(13, 90, 0.24, read_size=112,
+                                             seed=9), False)
+    raise KeyError(name)
+
+
 def torch_records(fn, cfg, p, t, pl, tl, packed):
     """fn (wfa2_reference or wfa_forward2) on CPU tensors of numpy input."""
     T = torch.from_numpy
@@ -341,7 +394,8 @@ def packed_case(p, t, pl, tl, read_size):
 
 
 WFA_LONG_CASES = ["r264_s40_ad", "r264_s40_nonad", "r264_s40_nobt",
-                  "mixed_r520_s50", "acgtn_r264_s40", "l1000"]
+                  "mixed_r520_s50", "acgtn_r264_s40", "l1000",
+                  "r264_s96_nonad"]
 
 
 def _long_pairs(R, n, seed=41):
@@ -355,6 +409,26 @@ def _long_pairs(R, n, seed=41):
         plen = rng.randrange(150, R - 30)
         tlen = max(1, plen + rng.choice([-1, 0, 0, 1]))
         out.append(make_pair(rng, plen, tlen, rng.randrange(0, 8)))
+    return out
+
+
+def long_gap_pairs(n, length, seed):
+    """Pairs whose text is the pattern with a mismatch or two and one gap of
+    4 to 30 bases, deleted or inserted (alternately), at a random place."""
+    import random
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        pat = "".join(rng.choice("ACGT") for _ in range(length))
+        g, at = rng.randrange(4, 31), rng.randrange(10, length - 40)
+        txt = (pat[:at] + pat[at + g:] if i % 2 else
+               pat[:at] + "".join(rng.choice("ACGT") for _ in range(g))
+               + pat[at:])
+        for _ in range(rng.randrange(0, 3)):
+            j = rng.randrange(len(txt))
+            txt = txt[:j] + "ACGT"[("ACGT".index(txt[j]) + 1) % 4] + \
+                txt[j + 1:]
+        out.append((pat, txt))
     return out
 
 
@@ -388,6 +462,13 @@ def mixed_lengths_batch(R=520, n=16, seed=91):
 
 def wfa_long_case(name):
     """(cfg, pats, txts, plens, tlens) of one named K5 case, raw bytes."""
+    if name == "r264_s96_nonad":
+        # no reduce, and one long gap a pair: bands of 33 to ~100 diagonals,
+        # past K5's 32-diagonal shared-memory ring, with the alignment
+        # diagonal in every part of them
+        cfg = AlignConfig(algo="wfa", read_size=264, max_score=96,
+                          backtrace=True, adaptive=False, variant="hbm")
+        return (cfg, *pack(long_gap_pairs(16, 230, seed=3), 264))
     if name.startswith("r264"):
         cfg = AlignConfig(algo="wfa", read_size=264, max_score=40,
                           backtrace=not name.endswith("nobt"),
