@@ -52,12 +52,14 @@
 // written and K6 writes the record itself.
 //
 // K7 walks one pair a warp from (tlen, plen) down, every thread on the
-// same scalars.  The nearest band position <= bb whose NW code is not D
-// (or whose SWG d_open bit is set) is one ballot over the row's words and
-// two __clz; a match run is 32 rows of is-match bits at one position read
-// by the 32 threads and one ballot.  The step budget (2R+2 NW, 3R+4 SWG)
-// starts afresh at each row block of the reference (block_rows), and a row
-// outside the current block reads as zero words there, as on the TPU.
+// same scalars: a step that meets an edit reads the code row in one
+// coalesced round (the D-run search one ballot and two __clz over it), and
+// match runs come from a window of 256 rows of is-match bits that each
+// round tops up only where the walk has left it, so a walk reads each
+// is-match row once (the K7 section says how).  The step budget (2R+2 NW,
+// 3R+4 SWG) starts afresh at each row block of the reference (block_rows),
+// and a row outside the current block reads as zero words there, as on the
+// TPU.
 // Records: packed_runs [n][NRL] int16, lane 0 = cursor_lo8 | flag << 8 |
 // forward flag << 9 | cursor_hi << 10, lane 1 = score clipped to int16,
 // runs op << 12 | length from lane cursor+1 (band.cuh's Runs; the short
@@ -75,7 +77,11 @@
 // which fits a 4096-pair chunk (1,024 blocks) in one wave on 132 SMs (SWG
 // keeps its I row in shared memory for that).  A lone warp's row now takes
 // ~760 cycles; in one full wave the ~220 instructions of an NW row bound it
-// (tools/row_profile.py reads both).  K7 is a short sequential walk a pair.
+// (tools/row_profile.py reads both).  K7 is a short sequential walk a pair,
+// bound by its dependent loads alone and then, once those are few, by the
+// is-match rows' bytes: a text row's bit lives in its own 16-byte (NW) or
+// 32-byte (SWG) row of ism at planes 1 and 2, so every walked row costs
+// that much traffic.
 
 #include <climits>
 
@@ -582,20 +588,66 @@ __global__ void __launch_bounds__(32 * kPairs, E <= 8 ? 8 : 1)
 }
 
 // ---------------------------------------------------------------- K7 ----
+//
+// One warp walks one pair; every thread keeps the same scalar state.  A
+// step of the reference (one trip of its loop) costs the warp one dependent
+// global round trip at most, most steps none, and the round trip is issued
+// before the steps ahead of it are emitted:
+//
+//   * The code row is read once, coalesced: lane w holds words w, w + 32,
+//     .. of the row (CWL a lane).  The D-run search is a ballot and two
+//     __clz over those registers, NW's code2 and SWG's nibble one shuffle
+//     of the lane that holds their word.
+//   * The is-match bits are read in a window of kGroups 32-row groups (the
+//     groups of the reference's match-run words, aligned to multiples of
+//     32 rows) at 64 band positions around the step's: lane t holds, for
+//     group i, words wc and wc + 1 of row (wtop - 32 i - t).  A window is
+//     kept until the walk leaves its rows or positions, so each is-match
+//     row is read once.
+//   * Match pieces come from the window alone.  Take the reference's step
+//     at row r = hcur - 1 and band position b = vcur - hcur + C, with r's
+//     is-match bit at b set.  NW: is-match is code M, which is not D, so
+//     the D-run search stops at b itself (b in the row's range) and the
+//     D-run is empty; code2, read at b again, is M, so the step is an M run
+//     from row r at b.  SWG (layer M, so no pending I): is-match is valid
+//     and choice M, so the step is neither D (no D-run) nor I nor X but an
+//     M run from row r at b.  Either way the step reads no code: its run
+//     is the ones of the window's bits at b from r down to r's 32-row group
+//     start, clipped by min(vcur, hcur), emitted as its own run (emits
+//     merge up to 4095 only, so the pieces must stay apart to split long
+//     runs where the reference splits them), and counted as one step
+//     against it_cap.  Such steps follow each other while the bits stay
+//     set, b and the layer unchanged, so after a step that read the code
+//     row the walk counts the ones ahead (L) at once.
+//   * The next step that reads the code row is then at row hcur - 1 - L,
+//     if the pieces are not cut short (the block's step budget, a block
+//     boundary past the budget, the walk's end): its code row, and a new
+//     window where the ones reach the window's end, are loaded before the
+//     pieces are emitted, so the round trip runs behind them.  A step
+//     that finds other rows in hand loads its own.
+//
+// Rows outside the current row block read as zero words (no loads), and
+// the step budget starts afresh at each block, as in the reference.
+
+// 32-row groups of is-match bits a window: 256 rows
+constexpr int kGroups = 8;
 
 // Nearest position <= q (0 <= q < NP) whose NW code is not D (kSwg: whose
-// d_open bit is set) in a code row, or -1.
-template <bool kSwg>
-__device__ __forceinline__ int last_marked(const uint32_t *row, int q,
+// d_open bit is set) in a code row held as cw (word 32 j + lane in cw[j]),
+// or -1.
+template <bool kSwg, int CWL>
+__device__ __forceinline__ int last_marked(const uint32_t (&cw)[CWL], int q,
                                            int lane) {
   constexpr int FB = kSwg ? 4 : 2;  // bits a position
   constexpr int PW = 32 / FB;       // positions a word
   const int wq = q / PW, fq = q % PW;
-  for (int base = wq & ~31; base >= 0; base -= 32) {
-    const int w = base + lane;
+#pragma unroll
+  for (int j = CWL - 1; j >= 0; --j) {
+    if (32 * j > wq) continue;  // warp-uniform
+    const int w = 32 * j + lane;
     uint32_t m = 0;
     if (w <= wq) {
-      const uint32_t word = row[w];
+      const uint32_t word = cw[j];
       m = kSwg ? (word >> 2) & 0x11111111u : (word | (word >> 1)) & 0x55555555u;
       if (w == wq && fq < PW - 1) m &= (1u << (FB * (fq + 1))) - 1u;
     }
@@ -603,78 +655,164 @@ __device__ __forceinline__ int last_marked(const uint32_t *row, int q,
     if (bal) {
       const int top = 31 - __clz((int)bal);
       const uint32_t mt = __shfl_sync(kFull, m, top);
-      return (base + top) * PW + (31 - __clz((int)mt)) / FB;
+      return (32 * j + top) * PW + (31 - __clz((int)mt)) / FB;
     }
   }
   return -1;
 }
 
-// Consecutive is-match rows at position q from global row `row` down to the
-// first row of its 32-row word (pos = its row within the word); zero
-// outside the current block.  Thread t reads row - t.
-__device__ __forceinline__ int long_match_run(const uint8_t *irows,
-                                              int ibytes, int row, int pos,
-                                              bool inblk, int q, int lane) {
-  bool ok = false;
-  if (inblk && lane <= pos)
-    ok = (irows[(long)(row - lane) * ibytes + (q >> 3)] >> (q & 7)) & 1;
-  const unsigned bits = __ballot_sync(kFull, ok);
-  const unsigned u = ~bits & (pos == 31 ? kFull : ((1u << (pos + 1)) - 1u));
-  return u == 0 ? pos + 1 : __ffs((int)u) - 1;
+// The code of position p in a code row held as cw (all of it: NW 2 bits,
+// SWG the 4-bit nibble).
+template <bool kSwg, int CWL>
+__device__ __forceinline__ int code_at(const uint32_t (&cw)[CWL], int p) {
+  constexpr int FB = kSwg ? 4 : 2;
+  constexpr int PW = 32 / FB;
+  const int w = p / PW;
+  uint32_t v = cw[0];
+#pragma unroll
+  for (int j = 1; j < CWL; ++j)
+    if (w >> 5 == j) v = cw[j];
+  v = __shfl_sync(kFull, v, w & 31);
+  return (v >> (FB * (p % PW))) & ((1u << FB) - 1u);
 }
 
-template <bool kSwg>
-__global__ void __launch_bounds__(32 * kPairs)
+template <bool kSwg, int CWL>
+__global__ void __launch_bounds__(32 * kPairs, 8)
     walk_kernel(const LongParams P) {
   const int lane = threadIdx.x & 31;
   const long pair = (long)blockIdx.x * kPairs + (threadIdx.x >> 5);
   if (pair >= P.n) return;  // warp-uniform
   const int C = P.C, NP = P.NP, RB = P.RB;
+  const int cwords = P.cbytes / 4, iwords = P.ibytes / 4;
   const int score = P.meta[2 * pair];
   const bool mflag = P.meta[2 * pair + 1] != 0;
   int16_t *rec = P.rec + pair * (long)P.NRL;
   for (int j = lane; j < P.NRL; j += 32) rec[j] = 0;
   __syncwarp();  // the zeroed record visible to the writing thread
   Runs out{rec, P.NRL, P.NRL - 1, 0, 0, lane == 0};
-  const uint8_t *crows = P.codes + pair * (long)P.R * P.cbytes;
-  const uint8_t *irows = P.ism + pair * (long)P.R * P.ibytes;
+  const uint32_t *crows =
+      reinterpret_cast<const uint32_t *>(P.codes + pair * (long)P.R * P.cbytes);
+  const uint32_t *irows =
+      reinterpret_cast<const uint32_t *>(P.ism + pair * (long)P.R * P.ibytes);
   // forward-flagged pairs do not walk (reference :608-623)
   int hcur = mflag ? 0 : P.tlens[pair];
   int vcur = mflag ? 0 : P.plens[pair];
   int layer = kLM;
-  for (int blk = P.NBK - 1; blk >= 0; --blk) {
+  // the reference's loop: block blk, its it-th step
+  int blk = P.NBK - 1, it = 0;
+  // whether a next step exists; moves to the block that takes it
+  auto next_step = [&]() {
+    while (blk >= 0) {
+      if (it < P.it_cap && hcur > 0 && vcur > 0 && hcur > blk * RB)
+        return true;
+      --blk;
+      it = 0;
+    }
+    return false;
+  };
+  // the code row in hand: row crow (none while crow < 0)
+  uint32_t cw[CWL];
+  int crow = -1;
+  auto load_code = [&](int row) {
+    crow = row;
+#pragma unroll
+    for (int j = 0; j < CWL; ++j)
+      cw[j] = 32 * j + lane < cwords
+                  ? crows[(long)row * cwords + 32 * j + lane] : 0u;
+  };
+  // the is-match window: rows wtop - 32 kGroups + 1 .. wrow (wtop = wrow |
+  // 31), positions 32 wc .. 32 wc + 63 (none while wrow < 0); lane t holds
+  // row wtop - 32 i - t in win0[i], win1[i]
+  uint32_t win0[kGroups], win1[kGroups];
+  int wrow = -1, wtop = -1, wc = 0;
+  // lane t's bits of the window at position mcol: bit i for row wtop - 32 i
+  // - t (mcol < 0: not taken yet)
+  uint32_t mbits = 0;
+  int mcol = -1;
+  auto load_window = [&](int row, int col) {
+    wrow = row;
+    wtop = row | 31;
+    wc = max(0, min((col - 16) >> 5, iwords - 2));
+    mcol = -1;
+    const uint32_t *at = irows + (long)(wtop - lane) * iwords + wc;
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      const int r = wtop - 32 * i - lane;
+      const bool ok = r >= 0 && r <= row;
+      win0[i] = ok ? at[0] : 0u;
+      win1[i] = ok ? at[1] : 0u;
+      at -= 32 * iwords;
+    }
+  };
+  auto covered = [&](int row, int col) {
+    return wrow >= 0 && row <= wrow && ((wtop - row) >> 5) < kGroups &&
+           (unsigned)(col - 32 * wc) < 64u;
+  };
+  // consecutive is-match rows at col from row down, through the window
+  // (which holds row and col): the first unset bit at or below row, as the
+  // least distance d = 32 i + t from wtop over the lanes; to_end: none
+  // before the window's last row
+  bool to_end = false;
+  auto ones_from = [&](int row, int col) {
+    if (col != mcol) {  // warp-uniform
+      const int o = col - 32 * wc;
+      mbits = 0;
+#pragma unroll
+      for (int i = 0; i < kGroups; ++i)
+        mbits |= (((o < 32 ? win0[i] : win1[i]) >> (o & 31)) & 1u) << i;
+      mcol = col;
+    }
+    const int d0 = wtop - row;
+    const int i0 = max(0, (d0 - lane + 31) >> 5);  // groups at or below row
+    const uint32_t z = ~mbits & ((1u << kGroups) - 1u) & (~0u << i0);
+    const int d = z ? 32 * (__ffs((int)z) - 1) + lane : INT_MAX;
+    const int dmin = __reduce_min_sync(kFull, d);
+    to_end = dmin == INT_MAX;
+    return (to_end ? 32 * kGroups : dmin) - d0;
+  };
+  while (next_step()) {
+    // ---- a step that reads the code row
     const int blk_lo = blk * RB;
-    for (int it = 0; it < P.it_cap; ++it) {
-      if (!(hcur > 0 && vcur > 0 && hcur > blk_lo)) break;
-      const int hm1 = hcur - 1 - blk_lo;
-      const bool inblk = hm1 < RB;
-      const int row = blk_lo + hm1;
-      const uint8_t *crow = crows + (long)row * P.cbytes;
-      const int bb = vcur - hcur + C;
-      const int q = max(0, min(bb, NP - 1));
-      if (!kSwg) {
-        const int pmb = inblk ? last_marked<false>(
-            reinterpret_cast<const uint32_t *>(crow), q, lane) : -1;
-        const int dlen = min(bb - pmb, vcur);
-        out.emit(true, kOpD, dlen);
-        vcur -= dlen;
-        const bool act2 = vcur > 0;
-        const int q2 = max(0, min(vcur - hcur + C, NP - 1));
-        const int code2 = inblk ? (crow[q2 >> 2] >> (2 * (q2 & 3))) & 3 : 0;
-        const bool is_i = act2 && code2 == kCI;
-        const bool is_x = act2 && code2 == kCX;
-        const bool is_m = act2 && code2 == kCM;
-        int mrun = long_match_run(irows, P.ibytes, row, hm1 & 31, inblk, q2,
-                                  lane);
-        mrun = is_m ? min(mrun, min(vcur, hcur)) : 0;
-        out.emit(is_i || is_m || is_x, is_i ? kOpI : is_m ? kOpM : kOpX,
-                 is_m ? mrun : 1);
-        hcur -= (is_i || is_x) ? 1 : mrun;
-        vcur -= is_x ? 1 : mrun;
-        continue;
+    const int hm1 = hcur - 1 - blk_lo;
+    const bool inblk = hm1 < RB;
+    const int row = blk_lo + hm1;
+    const int bb = vcur - hcur + C;
+    const int q = max(0, min(bb, NP - 1));
+    if (inblk) {  // warp-uniform
+      if (crow != row) load_code(row);
+      if (!covered(row, q)) load_window(row, q);
+    } else {
+      crow = -1;
+#pragma unroll
+      for (int j = 0; j < CWL; ++j) cw[j] = 0;
+    }
+    int ones = 0;  // is-match rows from row down at the M run's position
+    bool is_m;
+    if constexpr (!kSwg) {
+      const int pmb = inblk ? last_marked<false, CWL>(cw, q, lane) : -1;
+      const int dlen = min(bb - pmb, vcur);
+      out.emit(true, kOpD, dlen);
+      vcur -= dlen;
+      const bool act2 = vcur > 0;
+      const int q2 = max(0, min(vcur - hcur + C, NP - 1));
+      const int code2 = inblk ? code_at<false, CWL>(cw, q2) : 0;
+      const bool is_i = act2 && code2 == kCI;
+      const bool is_x = act2 && code2 == kCX;
+      is_m = act2 && code2 == kCM;
+      int mrun = 0;
+      if (is_m) {  // warp-uniform; inblk
+        if (!covered(row, q2)) load_window(row, q2);  // a long D-run
+        ones = ones_from(row, q2);
+        mrun = min(min(ones, (row & 31) + 1), min(vcur, hcur));
       }
-      // SWG: the M / I / D layer machine (reference :765-822)
-      const int nib = inblk ? (crow[q >> 1] >> (4 * (q & 1))) & 15 : 0;
+      out.emit(is_i || is_m || is_x, is_i ? kOpI : is_m ? kOpM : kOpX,
+               is_m ? mrun : 1);
+      hcur -= (is_i || is_x) ? 1 : mrun;
+      vcur -= is_x ? 1 : mrun;
+      ones -= mrun;
+    } else {
+      // the M / I / D layer machine (reference :765-822)
+      const int nib = inblk ? code_at<true, CWL>(cw, q) : 0;
       const bool io = (nib >> 3) & 1;
       const bool in_i = layer == kLI;
       out.emit(in_i, kOpI, 1);
@@ -684,8 +822,7 @@ __global__ void __launch_bounds__(32 * kPairs)
       const bool is_d = in_m && ch == kCD;
       int dlen = 0;
       if (is_d) {
-        const int pmd = inblk ? last_marked<true>(
-            reinterpret_cast<const uint32_t *>(crow), q, lane) : -1;
+        const int pmd = inblk ? last_marked<true, CWL>(cw, q, lane) : -1;
         dlen = bb - pmd + 1;
       }
       const bool capped = is_d && dlen >= vcur;
@@ -694,15 +831,64 @@ __global__ void __launch_bounds__(32 * kPairs)
       if (capped) layer = kLD;
       const bool is_i = in_m && ch == kCI;
       const bool is_x = in_m && ch == kCX;
-      const bool is_m = in_m && ch == kCM;
-      int mrun = long_match_run(irows, P.ibytes, row, hm1 & 31, inblk, q,
-                                lane);
-      mrun = is_m ? min(mrun, min(vcur, hcur)) : 0;
+      is_m = in_m && ch == kCM;
+      int mrun = 0;
+      if (is_m) {  // warp-uniform; inblk
+        ones = ones_from(row, q);
+        mrun = min(min(ones, (row & 31) + 1), min(vcur, hcur));
+      }
       out.emit(is_i || is_m || is_x, is_i ? kOpI : is_m ? kOpM : kOpX,
                is_m ? mrun : 1);
       if (is_i) layer = io ? kLM : kLI;
       hcur -= (in_i || is_i || is_x) ? 1 : mrun;
       vcur -= is_x ? 1 : dlen + mrun;
+      ones -= mrun;
+    }
+    ++it;
+    // ---- the match pieces ahead: after an M run its ones left (zero
+    // unless it filled its group), else the ones from the next row
+    const int b = vcur - hcur + C;
+    const int col = max(0, min(b, NP - 1));
+    int ahead = 0;
+    if (hcur > 0 && vcur > 0 && (kSwg ? layer == kLM : b == col)) {
+      if (is_m)
+        ahead = ones;
+      else if (covered(hcur - 1, col))
+        ahead = ones_from(hcur - 1, col);
+      else
+        to_end = false;
+    }
+    // the next step that reads the code row, where the pieces run out:
+    // its row, and a window from it where they leave this one
+    const int rn = hcur - 1 - ahead;
+    if (rn >= 0 && vcur - ahead > 0) {  // warp-uniform
+      load_code(rn);
+      if (ahead > 0 && to_end) load_window(rn, col);
+    }
+    // the pieces: with no check a piece where the run stays in this row
+    // block (rows read there), within its step budget (at most ahead / 32
+    // + 2 pieces) and short of vcur and hcur, as the reference's steps then
+    // find it
+    if (ahead > 0 && ahead < min(vcur, hcur) && hcur - ahead >= blk * RB &&
+        hcur - 1 - blk * RB < RB && it + ahead / 32 + 2 <= P.it_cap) {
+      do {
+        const int mrun = min(ahead, ((hcur - 1) & 31) + 1);
+        out.emit(true, kOpM, mrun);
+        hcur -= mrun;
+        vcur -= mrun;
+        ahead -= mrun;
+        ++it;
+      } while (ahead > 0);
+    }
+    while (ahead > 0 && next_step()) {
+      if (hcur - 1 - blk * RB >= RB) break;  // outside the block: zero rows
+      const int mrun = min(min(ahead, ((hcur - 1) & 31) + 1),
+                           min(vcur, hcur));
+      out.emit(true, kOpM, mrun);
+      hcur -= mrun;
+      vcur -= mrun;
+      ahead -= mrun;
+      ++it;
     }
   }
   bool flag = mflag || (hcur > 0 && vcur > 0);
@@ -746,6 +932,18 @@ Kern fwd_kernel_for(int planes, bool swg, size_t *smem) {
     case 2: return swg ? fwd_kernel<8, true> : fwd_kernel<8, false>;
     case 4: return swg ? fwd_kernel<16, true> : fwd_kernel<16, false>;
     case 8: return swg ? fwd_kernel<32, true> : fwd_kernel<32, false>;
+  }
+  return nullptr;
+}
+
+// K7 at `planes` (NW or SWG): the instance whose code row is CWL words a
+// lane (NW 8 * planes words a row, SWG 16 * planes).
+Kern walk_kernel_for(int planes, bool swg) {
+  switch (swg ? 16 * planes : 8 * planes) {
+    case 8: case 16: case 32:
+      return swg ? walk_kernel<true, 1> : walk_kernel<false, 1>;
+    case 64: return swg ? walk_kernel<true, 2> : walk_kernel<false, 2>;
+    case 128: return walk_kernel<true, 4>;
   }
   return nullptr;
 }
@@ -834,8 +1032,7 @@ int aim_nwswg_long_walk(const void *codes, const void *ism, const void *meta,
   P.it_cap = swg ? 3 * R + 4 : 2 * R + 2;
   P.cbytes = P.NP * (swg ? 4 : 2) / 8;
   P.ibytes = P.NP / 8;
-  return launch_long(swg ? walk_kernel<true> : walk_kernel<false>, P, 0,
-                     stream);
+  return launch_long(walk_kernel_for(planes, swg != 0), P, 0, stream);
 }
 
 // What K6 runs at `planes` (NW or SWG): out = {registers a thread, local
@@ -846,6 +1043,12 @@ int aim_nwswg_long_info(int planes, int swg, int *out) {
   size_t smem;
   Kern k = fwd_kernel_for(planes, swg != 0, &smem);
   return band_info(k, smem, 1, out);
+}
+
+// The same for K7.
+int aim_nwswg_long_walk_info(int planes, int swg, int *out) {
+  if (!planes_ok(planes)) return (int)cudaErrorInvalidValue;
+  return band_info(walk_kernel_for(planes, swg != 0), 0, 1, out);
 }
 
 }  // extern "C"

@@ -152,9 +152,10 @@ def declare(lib):
     # ge ms, and the stream
     lib.aim_nwswg_long_forward.restype = ci
     lib.aim_nwswg_long_forward.argtypes = [vp] * 8 + [cl] + [ci] * 16 + [vp]
-    # planes swg, then the int[6] of INFO_KEYS
-    lib.aim_nwswg_long_info.restype = ci
-    lib.aim_nwswg_long_info.argtypes = [ci, ci, vp]
+    # planes swg, then the int[6] of INFO_KEYS (K6 and K7)
+    for fn in (lib.aim_nwswg_long_info, lib.aim_nwswg_long_walk_info):
+        fn.restype = ci
+        fn.argtypes = [ci, ci, vp]
     # pointers (codes ism meta plens tlens rec), n, then R planes NRL RB
     # swg, and the stream
     lib.aim_nwswg_long_walk.restype = ci

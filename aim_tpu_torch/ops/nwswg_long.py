@@ -183,13 +183,13 @@ def device_bytes_per_pair(cfg: AlignConfig, planes: int = 1) -> int:
     return per
 
 
-def kernel_info(cfg: AlignConfig, planes: int) -> dict:
-    """What K6 (csrc/nwswg_long.cu) runs at ``planes`` for ``cfg`` on the
-    card (``_build.INFO_KEYS``: registers, spill bytes, shared memory and
-    resident blocks an SM, pairs a warp)."""
+def kernel_info(cfg: AlignConfig, planes: int, walk: bool = False) -> dict:
+    """What K6 (or, with ``walk``, K7; csrc/nwswg_long.cu) runs at
+    ``planes`` for ``cfg`` on the card (``_build.INFO_KEYS``: registers,
+    spill bytes, shared memory and resident blocks an SM, pairs a warp)."""
     from aim_tpu_torch.ops import _build
-    return _build.kernel_info("nwswg_long", planes,
-                              int(cfg.algo == ALGO_SWG))
+    return _build.kernel_info("nwswg_long_walk" if walk else "nwswg_long",
+                              planes, int(cfg.algo == ALGO_SWG))
 
 
 def seq_geometry(cfg: AlignConfig, width: int, packed: bool, npl: int):
@@ -421,9 +421,17 @@ def _flush(runs, rc, top_op, top_len, NRL: int):
 
 
 def nwswg_long_walk_reference(codes, ism, meta, plens, tlens, *,
-                              cfg: AlignConfig, planes: int = 1):
+                              cfg: AlignConfig, planes: int = 1,
+                              stats: dict | None = None):
     """Plain K7 on any device: the records [n, NRL] int16 from K6's code
-    rows and meta."""
+    rows and meta.
+
+    With ``stats`` (a dict), also counts, summed over pairs: ``walked``
+    (pairs with at least one step), ``steps`` (loop iterations), ``m_steps``
+    (steps ending in a match run), ``m_pieces`` (match steps that continue
+    the previous step's run: it covered its 32-row word, and this step's
+    D-run is empty at the same band position), ``d_then_m`` (NW match steps
+    after a D-run moved the position) and ``max_steps`` (of one pair)."""
     algo = cfg.algo
     R = cfg.read_size
     npl = planes
@@ -449,6 +457,20 @@ def nwswg_long_walk_reference(codes, ism, meta, plens, tlens, *,
 
     def at(arr, pos):
         return seg_at(arr, pos, P)
+
+    steps = zero.clone()
+    n_m = n_piece = n_dm = 0
+    full_prev = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def count(act, is_m, mrun, hm1, moved, cont):
+        """Step statistics: ``cont`` marks steps that may continue the
+        previous step's run; returns the next step's ``full_prev``."""
+        nonlocal steps, n_m, n_piece, n_dm
+        steps = steps + act.to(I32)
+        n_m += int(is_m.sum())
+        n_piece += int((is_m & full_prev & cont).sum())
+        n_dm += int((is_m & moved).sum())
+        return act & is_m & (mrun == (hm1 & 31) + 1)
 
     def match_run(hm1, inblk, blk_lo, pos_b):
         """Consecutive is-match rows at band position pos_b from local row
@@ -497,6 +519,9 @@ def nwswg_long_walk_reference(codes, ism, meta, plens, tlens, *,
                                                              OP_X))
                     st = emit_merge(st, is_i | is_m | is_x, op,
                                     torch.where(is_m, mrun, 1), NRL)
+                    if stats is not None:
+                        full_prev = count(act, is_m, mrun, hm1, dlen > 0,
+                                          dlen == 0)
                     hcur = hcur - torch.where(is_i | is_x, 1, mrun)
                     vcur = vcur - torch.where(is_x, 1, mrun)
                     continue
@@ -526,9 +551,15 @@ def nwswg_long_walk_reference(codes, ism, meta, plens, tlens, *,
                                 torch.where(is_m, mrun, one), NRL)
                 layer = torch.where(is_i, torch.where(io_here == 1, L_M, L_I),
                                     layer)
+                if stats is not None:
+                    full_prev = count(act, is_m, mrun, hm1, is_d, ~in_i)
                 hcur = hcur - torch.where(in_i | is_i | is_x, 1, mrun)
                 vcur = vcur - torch.where(is_x, 1, dlen + mrun)
 
+    if stats is not None:
+        stats.update(walked=int((steps > 0).sum()), steps=int(steps.sum()),
+                     m_steps=n_m, m_pieces=n_piece, d_then_m=n_dm,
+                     max_steps=int(steps.max()) if n else 0)
     mflag = meta[:, 1] > 0
     flag = mflag | ((hcur > 0) & (vcur > 0))
     hrem, vrem = hcur, vcur

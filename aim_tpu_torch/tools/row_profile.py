@@ -2,14 +2,15 @@
 only).
 
     python -m aim_tpu_torch.tools.row_profile [--sass] [--stamps]
-        [--only band|wfa] [--times] [--out FILE]
+        [--only band|wfa|walk] [--times] [--out FILE]
 
 Readings of K6, the streamed forward (csrc/nwswg_long.cu), at the
 streamed tier's timing config (`nw -l 4096 -e 0.01 -b --variant hbm`,
 seed 1), and of K2 (csrc/nw.cu) at `nw -l 100 -e 0.01 -b` (``--only
 band``), and of K5 (csrc/wfa_long.cu) at `wfa -l 10000 -e 0.01 -b -r
 --variant hbm` and K1 (csrc/wfa2.cu) at `wfa -l 100 -e 0.01 -b -r`
-(``--only wfa``):
+(``--only wfa``), and of K7, the streamed walk (csrc/nwswg_long.cu), at
+`nw` and `swg -l 4096 -e 0.01 -b --variant hbm` (``--only walk``):
 
   1. scaling: the kernel's time (CUDA events) at pair counts from one warp
      a warp scheduler (4 pairs a block on 132 SMs) to several waves.  If a
@@ -33,12 +34,21 @@ band``), and of K5 (csrc/wfa_long.cu) at `wfa -l 10000 -e 0.01 -b -r
      and widest band [klo, khi], live (level, diagonal) cells and matched
      bases a pair, beside the 2*smax+1 diagonals a level of every level a
      pair reaches.
+  5. walk (K7): steps a walked pair of the plain version's loop (``stats``
+     of ``nwswg_long_walk_reference``: match steps, the match steps that
+     continue a run past its 32-row word, those after a D-run) on 64
+     pairs; K7's time from the first walked pair alone to the 4,096-pair
+     chunk (the chunk runs in one wave, so a lone pair's time against the
+     chunk's says whether a step's dependent loads bind); with
+     ``--stamps``, clock64() stamps of a step's parts (``WALK_STAMPS``),
+     as in 3.
 
 ``--times`` prints only the kernel times that compare two trees of the
 port (K1 on 16,384 pairs; K5 on 1,024 pairs adaptive and non-adaptive,
 and on the 8,192 pairs of chip_smoke.py's 10 kbp CLI run in the CLI's
-difficulty order); it drives the kernels through their public wrappers
-alone, so it runs unchanged from the root of an older tree.
+difficulty order; K6 and K7 on the 4,096-pair NW and SWG 4 kbp chunks,
+with a digest of K7's records); it drives the kernels through their public
+wrappers alone, so it runs unchanged from the root of an older tree.
 
 Each reading prints one JSON line (and appends it to ``--out``).
 """
@@ -232,10 +242,10 @@ def wfa_times(dev, out):
                "ms": ms, "levels_reached_per_pair": levels, **info}, out)
 
 
-def ptxas(out):
+def ptxas(out, srcs=("nwswg_long.cu", "nw.cu", "wfa2.cu", "wfa_long.cu")):
     """Registers and spills a kernel instance from `nvcc -Xptxas -v`."""
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("nwswg_long.cu", "nw.cu", "wfa2.cu", "wfa_long.cu"):
+        for src in srcs:
             r = subprocess.run(
                 [_build._nvcc()] + _build.NVCC_FLAGS +
                 ["-Xptxas", "-v", "-c", os.path.join(_build.CSRC, src),
@@ -264,7 +274,7 @@ def ptxas(out):
 
 
 SASS_FUNCS = ("fwd_kernel", "nw_seg_kernel", "wfa_long_kernel",
-              "wfa2_kernel")
+              "wfa2_kernel", "walk_kernel")
 
 
 def sass(out):
@@ -302,34 +312,49 @@ def sass(out):
                          for n, o in loops[:3]]}, out)
 
 
-def instrumented(text):
-    """The source with stamps around the parts of K6's row, and the names
-    of the parts."""
-    for marks in STAMPS.values():
-        if all(anchor in text for _, anchor, _ in marks):
+def instrumented(text, marksets=STAMPS, begin=LOOP, end=AFTER_LOOP,
+                 count="hmax"):
+    """The source with clock64() stamps around the parts of a loop, and the
+    names of the parts: the first anchor set of ``marksets`` that matches
+    the source (a list of marks, or a dict of "marks" and "ticks"); the
+    stamps start before ``begin`` and are summed before ``end`` (after it
+    at K6's loop end; lane 0 of each warp adds its cycles a part and
+    ``count``, the loop's trips, to global accumulators).  With ticks
+    (anchors), the trips are counted after each of them instead."""
+    for marks in marksets.values():
+        ticks = []
+        if isinstance(marks, dict):
+            marks, ticks = marks["marks"], marks["ticks"]
+        if all(anchor in text for _, anchor, _ in marks) and \
+                all(t in text for t in ticks):
             break
     else:
-        raise RuntimeError("no STAMPS anchor set matches the source")
+        raise RuntimeError("no stamp anchor set matches the source")
     ns = len(marks)
-    assert text.count(LOOP) == 1 and text.count(AFTER_LOOP) == 1
+    assert text.count(begin) == 1 and text.count(end) == 1
     for k, (_, anchor, where) in enumerate(marks):
         assert text.count(anchor) == 1, anchor
         stamp = f"    AIM_STAMP({k});\n"
         text = text.replace(anchor, anchor + "\n" + stamp.rstrip("\n")
                             if where == "after" else stamp + anchor)
-    text = text.replace(LOOP, "  AIM_STAMP_BEGIN;\n" + LOOP)
-    text = text.replace(AFTER_LOOP, AFTER_LOOP + "\n  AIM_STAMP_END;")
+    for tick in ticks:
+        assert text.count(tick) == 1, tick
+        text = text.replace(tick, tick + "\n      ++_steps;")
+        count = "_steps"
+    text = text.replace(begin, "  AIM_STAMP_BEGIN;\n" + begin)
+    text = text.replace(end, (end + "\n  AIM_STAMP_END;") if end == AFTER_LOOP
+                        else "  AIM_STAMP_END;\n" + end)
     head = f"""
 #include <cuda_runtime.h>
 __device__ unsigned long long aim_stamp_acc[{ns + 1}];
 #define AIM_STAMP_BEGIN long long _sa[{ns}] = {{}}; \\
-  long long _sl = clock64()
+  long long _steps = 0; long long _sl = clock64()
 #define AIM_STAMP(k) {{ const long long _t = clock64(); \\
   _sa[k] += _t - _sl; _sl = _t; }}
 #define AIM_STAMP_END if ((threadIdx.x & 31) == 0) {{ \\
   for (int _k = 0; _k < {ns}; ++_k) \\
     atomicAdd(&aim_stamp_acc[_k], (unsigned long long)_sa[_k]); \\
-  atomicAdd(&aim_stamp_acc[{ns}], (unsigned long long)hmax); }}
+  atomicAdd(&aim_stamp_acc[{ns}], (unsigned long long)({count})); }}
 """
     tail = f"""
 extern "C" int aim_stamp_io(unsigned long long *host, int clear) {{
@@ -344,26 +369,35 @@ extern "C" int aim_stamp_io(unsigned long long *host, int clear) {{
     return head + text + tail, [m[0] for m in marks]
 
 
+def stamped_library(tmp, text):
+    """Build ``text`` (an instrumented csrc/nwswg_long.cu) alone into a
+    library in ``tmp``; returns it with its entry points declared."""
+    cu = os.path.join(tmp, "nwswg_long_stamped.cu")
+    open(cu, "w").write(text)
+    so = os.path.join(tmp, "libstamped.so")
+    r = subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS +
+                       [f"-I{_build.CSRC}", "-shared", cu, "-o", so],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(r.stdout + r.stderr)
+    lib = ctypes.CDLL(so)
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.aim_nwswg_long_forward.restype = ci
+    lib.aim_nwswg_long_forward.argtypes = [vp] * 8 + [cl] + [ci] * 16 + [vp]
+    lib.aim_nwswg_long_walk.restype = ci
+    lib.aim_nwswg_long_walk.argtypes = [vp] * 6 + [cl] + [ci] * 5 + [vp]
+    lib.aim_stamp_io.restype = ci
+    lib.aim_stamp_io.argtypes = [vp, ci]
+    return lib
+
+
 def stamps(dev, out):
     src = os.path.join(_build.CSRC, "nwswg_long.cu")
     text, names = instrumented(open(src).read())
     with tempfile.TemporaryDirectory() as tmp:
-        cu = os.path.join(tmp, "nwswg_long_stamped.cu")
-        open(cu, "w").write(text)
-        so = os.path.join(tmp, "libstamped.so")
-        r = subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS +
-                           [f"-I{_build.CSRC}", "-shared", cu, "-o", so],
-                           capture_output=True, text=True)
-        if r.returncode:
-            raise RuntimeError(r.stdout + r.stderr)
-        lib = ctypes.CDLL(so)
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        fwd = lib.aim_nwswg_long_forward
-        fwd.restype = ci
-        fwd.argtypes = [vp] * 8 + [cl] + [ci] * 16 + [vp]
-        io = lib.aim_stamp_io
-        io.restype = ci
-        io.argtypes = [vp, ci]
+        lib = stamped_library(tmp, text)
+        fwd, io = lib.aim_nwswg_long_forward, lib.aim_stamp_io
+        vp = ctypes.c_void_p
         acc = (ctypes.c_ulonglong * (len(names) + 1))()
         for n in (4 * SMS, 4096):
             cfg, args, packed, _ = k6_batch(n, dev)
@@ -401,11 +435,182 @@ def stamps(dev, out):
                    "parts": dict(zip(names, cyc.tolist()))}, out)
 
 
+# K7's parts: in its first design ("three_loads": the D-run search, code2
+# and the match run each a load round of its own) and its second
+# ("rounds": a step that meets an edit reads the code row in one round,
+# the is-match window topped up in the same round; match pieces come from
+# the window); parts named without "nw_" or "swg_" are both algorithms'.
+# The stamps count the reference's steps at the ``ticks``.
+WALK_STAMPS = {
+    "three_loads": {
+        "marks": [
+            ("nw_d_search", "        out.emit(true, kOpD, dlen);", "after"),
+            ("nw_code2", "        const bool is_m = act2 && code2 == kCM;",
+             "after"),
+            ("nw_match_run",
+             "        continue;\n      }\n      // SWG: the M", "before"),
+            ("swg_nibble_d_search", "      out.emit(is_d, kOpD, dlen);",
+             "after"),
+            ("swg_match_run", "      vcur -= is_x ? 1 : dlen + mrun;",
+             "after"),
+        ],
+        "ticks": ["      if (!(hcur > 0 && vcur > 0 && hcur > blk_lo)) "
+                  "break;"],
+    },
+    "rounds": {
+        "marks": [
+            ("nw_round", "      out.emit(true, kOpD, dlen);", "after"),
+            ("swg_round", "      const bool is_d = in_m && ch == kCD;",
+             "after"),
+            ("step", "    ++it;\n    // ---- the match pieces ahead",
+             "before"),
+            ("pieces", "  }\n  bool flag = mflag || (hcur > 0 && vcur > 0);",
+             "before"),
+        ],
+        "ticks": ["    int ones = 0;  // is-match rows from row down at the M "
+                  "run's position",
+                  "        out.emit(true, kOpM, mrun);",
+                  "                           min(vcur, hcur));\n"
+                  "      out.emit(true, kOpM, mrun);"],
+    },
+}
+WALK_BEGIN = "  // forward-flagged pairs do not walk (reference :608-623)"
+WALK_END = "  bool flag = mflag || (hcur > 0 && vcur > 0);"
+WALK_COUNTS = (1, 4, 4 * SMS, 1024, 4096)
+WALK_STEP_PAIRS = 64   # the plain version's pairs for the step counts
+
+
+def walk_batch(algo, n, dev, seed=1):
+    """K7's inputs on n generated pairs of `<algo> -l 4096 -e 0.01 -b
+    --variant hbm` at the routed plane count: (cfg, planes, the pair
+    tensors, K6's (meta, codes, ism, rec))."""
+    cfg = derive_config(algo, 4096, 0.01, backtrace=True, variant="hbm")
+    planes = nwswg_long.route_planes(cfg)
+    p, t, pl, tl = datagen.generate_pairs(n, 4096, 0.01,
+                                          read_size=cfg.read_size, seed=seed)
+    pp, pt, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
+    args = to_device_batch(pp, pt, pl, tl, dev)
+    fwd = nwswg_long.launch_forward(*args, cfg=cfg, packed=packed,
+                                    planes=planes)
+    return cfg, planes, args, packed, fwd
+
+
+def _walk(cfg, planes, args, fwd, n, lo=0):
+    meta, codes, ism, rec = (x[lo:lo + n] for x in fwd)
+    return lambda: nwswg_long.launch_walk(codes, ism, meta, args[2][lo:lo + n],
+                                          args[3][lo:lo + n], rec, cfg=cfg,
+                                          planes=planes)
+
+
+def walk_profile(dev, out, stamps_too):
+    """K7 at NW (one plane) and SWG (two) 4 kbp: steps a walked pair from
+    the plain version's loop, the time by pair count from a lone walked
+    pair to the 4,096-pair chunk, and (``stamps_too``) clock64() stamps of
+    a step's parts."""
+    for algo in ("nw", "swg"):
+        cfg, planes, args, packed, fwd = walk_batch(algo, 4096, dev)
+        meta = fwd[0]
+        lone = int(torch.nonzero(meta[:, 1] == 0)[0])   # first walked pair
+        st = {}
+        k = WALK_STEP_PAIRS
+        nwswg_long.nwswg_long_walk_reference(
+            fwd[1][:k], fwd[2][:k], meta[:k], args[2][:k], args[3][:k],
+            cfg=cfg, planes=planes, stats=st)
+        w = max(st["walked"], 1)
+        _emit({"reading": "steps", "kernel": "nwswg_long_walk",
+               "algo": algo, "planes": planes, "pairs": min(k, len(meta)),
+               "walked": st["walked"], **{f"{key}_per_walked_pair":
+                                          st[key] / w for key in (
+                   "steps", "m_steps", "m_pieces", "d_then_m")},
+               "max_steps": st["max_steps"]}, out)
+        lone_st = {}
+        nwswg_long.nwswg_long_walk_reference(
+            *(x[lone:lone + 1] for x in (fwd[1], fwd[2], meta, args[2],
+                                         args[3])),
+            cfg=cfg, planes=planes, stats=lone_st)
+        for n in WALK_COUNTS:
+            lo = lone if n == 1 else 0
+            s = timing.best_of(_walk(cfg, planes, args, fwd, n, lo),
+                               device=dev, min_anchor_s=1e-6)
+            row = {"reading": "scaling", "kernel": "nwswg_long_walk",
+                   "algo": algo, "planes": planes, "pairs": n,
+                   "walked": int((meta[lo:lo + n, 1] == 0).sum()),
+                   "ms": s * 1e3}
+            if n == 1:
+                row.update(steps=lone_st["steps"],
+                           us_per_step=s * 1e6 / lone_st["steps"])
+            _emit(row, out)
+        if stamps_too:
+            walk_stamps(dev, out, cfg, planes, args, fwd, lone)
+
+
+def walk_stamps(dev, out, cfg, planes, args, fwd, lone):
+    """clock64() stamps of K7's step on the lone walked pair and on the
+    4,096-pair chunk: cycles a step of each part (a copy of the source,
+    built alone; its records must equal K7's)."""
+    src = os.path.join(_build.CSRC, "nwswg_long.cu")
+    text, names = instrumented(open(src).read(), WALK_STAMPS, WALK_BEGIN,
+                               WALK_END)
+    other = "swg_" if cfg.algo == "nw" else "nw_"
+    mine = [i for i, nm in enumerate(names) if not nm.startswith(other)]
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = stamped_library(tmp, text)
+        acc = (ctypes.c_ulonglong * (len(names) + 1))()
+        vp = ctypes.c_void_p
+        for n, lo in ((1, lone), (4096, 0)):
+            meta, codes, ism, rec = (x[lo:lo + n] for x in fwd)
+            got = torch.empty_like(rec)
+            assert lib.aim_stamp_io(None, 1) == 0
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev)
+                                     .cuda_stream)
+            rc = lib.aim_nwswg_long_walk(
+                codes.data_ptr(), ism.data_ptr(), meta.data_ptr(),
+                args[2][lo:].data_ptr(), args[3][lo:].data_ptr(),
+                got.data_ptr(), n, cfg.read_size, planes,
+                nwswg_long.runs_lanes_long(cfg),
+                nwswg_long.block_rows(cfg.algo, planes),
+                int(cfg.algo == "swg"), stream)
+            torch.cuda.synchronize(dev)
+            assert rc == 0 and lib.aim_stamp_io(ctypes.cast(acc, vp), 0) == 0
+            _walk(cfg, planes, args, fwd, n, lo)()
+            if not torch.equal(got, rec):
+                raise RuntimeError("the stamped copy disagrees with K7")
+            vals = np.array(acc[:], dtype=np.float64)
+            steps = max(vals[-1], 1.0)
+            cyc = {names[i]: vals[i] / steps for i in mine}
+            _emit({"reading": "stamps", "kernel": "nwswg_long_walk",
+                   "algo": cfg.algo, "planes": planes, "pairs": n,
+                   "warp_steps": int(vals[-1]),
+                   "cycles_per_step": float(sum(cyc.values())),
+                   "parts": cyc}, out)
+
+
+def walk_times(dev, out):
+    """The K6 and K7 times two trees are compared on: the 4,096-pair NW and
+    SWG 4 kbp chunks, through the public launchers, with a digest of the
+    records so the trees' outputs compare too."""
+    import hashlib
+    for algo in ("nw", "swg"):
+        cfg, planes, args, packed, fwd = walk_batch(algo, 4096, dev)
+        k6 = timing.best_of(lambda: nwswg_long.launch_forward(
+            *args, cfg=cfg, packed=packed, planes=planes), device=dev,
+            min_anchor_s=1e-5)
+        k7 = timing.best_of(_walk(cfg, planes, args, fwd, 4096), device=dev,
+                            min_anchor_s=1e-6)
+        _walk(cfg, planes, args, fwd, 4096)()
+        digest = hashlib.sha256(fwd[3].cpu().numpy().tobytes()).hexdigest()
+        _emit({"reading": "times", "algo": algo, "planes": planes,
+               "pairs": len(args[2]),
+               "walked": int((fwd[0][:, 1] == 0).sum()),
+               "nwswg_long_fwd_ms": k6 * 1e3, "nwswg_long_walk_ms": k7 * 1e3,
+               "records_sha256": digest[:16]}, out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--only", choices=("band", "wfa"), default=None)
+    ap.add_argument("--only", choices=("band", "wfa", "walk"), default=None)
     ap.add_argument("--times", action="store_true")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
@@ -418,18 +623,24 @@ def main(argv=None) -> int:
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}, a.out)
     if a.times:
-        wfa_times(dev, a.out)
+        if a.only in (None, "wfa"):
+            wfa_times(dev, a.out)
+        if a.only in (None, "walk"):
+            walk_times(dev, a.out)
         return 0
-    ptxas(a.out)
+    ptxas(a.out, ("nwswg_long.cu",) if a.only == "walk" else
+          ("nwswg_long.cu", "nw.cu", "wfa2.cu", "wfa_long.cu"))
     if a.sass:
         sass(a.out)
-    if a.only != "wfa":
+    if a.only in (None, "band"):
         scaling(dev, a.out)
         if a.stamps:
             stamps(dev, a.out)
-    if a.only != "band":
+    if a.only in (None, "wfa"):
         wfa_scaling(dev, a.out)
         wfa_band(dev, a.out)
+    if a.only in (None, "walk"):
+        walk_profile(dev, a.out, a.stamps)
     return 0
 
 

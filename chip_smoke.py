@@ -21,7 +21,8 @@ before the last line:
               (csrc/nwswg_long.cu) on NW and SWG at planes 1, 2, 4 and 8,
               with and without backtrace, raw and packed, records of 256 to
               1024 lanes, flagged pairs, the raw two-plane shape the retry
-              ladder hands them behind K2 and K3, and the GenASM adapter at
+              ladder hands them behind K2 and K3, K7's own cases
+              (tests/torch_cases.py K7_CASES), and the GenASM adapter at
               k in each of its plane bands (K6 on meta and code rows, K7 and
               the wrapper nwswg_forward_long on records).
   3. main     the CLI paths: `wfa -l 100 -e 0.01 -b -r` (the main path),
@@ -46,17 +47,17 @@ before the last line:
               the oracle re-ran.
   4. timing   each kernel vs its plain version on one chunk of its
               canonical config (CUDA events): 16384 pairs at 100 bp, 1024
-              pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7; their
+              pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7 (K7 also
+              on the SWG chunk, `swg -l 4096 -e 0.01 -b --variant hbm`); their
               records compared once more at this, the CLI's launch shape;
               K5 also alone on the 8,192 pairs of the 10 kbp CLI run, in its
               difficulty order; K6 also on the first 1024 pairs of its chunk
-              (the 4 kbp CLI runs' size); K1's, K2's, K3's, K4's, K5's and
-              K6's registers, spills, shared memory, resident blocks an SM
-              and pairs a warp.  The WFA bounds count the live (level,
-              diagonal) cells of the plain version's level extents and a
-              compare a 32-base window of matched bases; the lines also
-              give the operations the earlier count (every diagonal of
-              every level reached) gave.
+              (the 4 kbp CLI runs' size); K1's to K7's registers, spills,
+              shared memory, resident blocks an SM and pairs a warp.  The
+              WFA bounds count the live (level, diagonal) cells of the
+              plain version's level extents and a compare a 32-base window
+              of matched bases; the lines also give the operations the
+              earlier count (every diagonal of every level reached) gave.
   5. probes   the tooling path: `aim_tpu_torch.tools.microbench` drives the
               13 CUDA probes of csrc/probes.cu (M1's twelve, M2) with their
               launch counters at 0; each probe's output equal to its plain
@@ -644,8 +645,8 @@ def stream_configs():
     from aim_tpu_torch import datagen
     from aim_tpu_torch.config import AlignConfig, derive_config
     sys.path.insert(0, os.path.join(REPO, "tests"))
-    from torch_cases import (NW_LONG, SWG_LONG, mixed_lengths_batch,
-                             nwswg_long_case)
+    from torch_cases import (K7_CASES, NW_LONG, SWG_LONG,
+                             mixed_lengths_batch, nwswg_long_case)
 
     def dg(n, length, e, cfg, seed=SEED):
         return datagen.generate_pairs(n, length, e, read_size=cfg.read_size,
@@ -686,10 +687,14 @@ def stream_configs():
            ("nw_mixed_R520_p2", AlignConfig(read_size=520, **NW_LONG),
             mixed_lengths_batch(R=520, n=256), 2, True),
            ("swg_wrap_R1040_p2", wrap, fuzz_batch(1040), 2, False)]
+    # and K7's own cases: a match run of 4224 rows, runs ending on 32-row
+    # word and row-block boundaries, gaps, planes 1 to 8 (packed, so the
+    # raw ones above and these differ)
     for case in ("swg_wide_retry", "ladder_p4", "ladder_p8", "nrl1024_p2",
-                 "nw_ovf_p1"):
+                 "nw_ovf_p1") + tuple(K7_CASES):
         cfg, p, t, pl, tl, planes = nwswg_long_case(case)
-        out.append((f"case_{case}", cfg, (p, t, pl, tl), planes, False))
+        out.append((f"case_{case}", cfg, (p, t, pl, tl), planes,
+                    case.startswith("k7_")))
     # the shape the ladder hands K6/K7 behind K2 and K3: raw bytes, two
     # planes, at 100 bp on 10 % errors (K2 flags nearly every pair) and on
     # K3's int16 cells
@@ -1309,14 +1314,39 @@ def phase_timing(reps=20):
     e7 = int((rec.long() - prec.long()).abs().max())
     flags = "-b --variant hbm"
     k6_info = nwswg_long.kernel_info(cfg, planes)
+    k7_info = nwswg_long.kernel_info(cfg, planes, walk=True)
     for name, k_ms, p_ms, err, r in (("nwswg_long_fwd", k6_ms, p6_ms, e6,
                                       rec),
                                      ("nwswg_long_walk", k7_ms, p7_ms, e7,
                                       rec)):
         bnd = chunk_bound(name, cfg, args, r)
         report(name, cfg, 4096, flags, STREAM_TIMING_PAIRS, k_ms, p_ms, 5,
-               err, bnd, k6_info if name == "nwswg_long_fwd" else None)
+               err, bnd, k6_info if name == "nwswg_long_fwd" else k7_info)
         out[name] = (k_ms, p_ms, err) + bnd[:2]
+    # K7 on the SWG chunk too (`swg -l 4096 -e 0.01 -b --variant hbm`, its
+    # routed planes): K6's code rows from the kernel, K7 against the plain
+    # walk on them
+    scfg = cfg_of("swg", 4096, variant="hbm")
+    splanes = nwswg_long.route_planes(scfg)
+    p, t, pl, tl = datagen.generate_pairs(STREAM_TIMING_PAIRS, 4096, 0.01,
+                                          read_size=scfg.read_size,
+                                          seed=SEED + 1)
+    pp, pt, spacked = pack_seqs(p, t, pl, tl, scfg.read_size)
+    sargs = to_device_batch(pp, pt, pl, tl, DEVICE)
+    smeta, scodes, sism, srec = kernel_long(sargs, scfg, splanes, spacked)
+    sk7_ms = timed(lambda: nwswg_long.launch_walk(
+        scodes, sism, smeta, sargs[2], sargs[3], srec, cfg=scfg,
+        planes=splanes), 5)
+    t0 = time.perf_counter()
+    sprec = nwswg_long.nwswg_long_walk_reference(
+        scodes, sism, smeta, sargs[2], sargs[3], cfg=scfg, planes=splanes)
+    torch.cuda.synchronize()
+    sp7_ms = (time.perf_counter() - t0) * 1e3
+    report("nwswg_long_walk", scfg, 4096, flags, STREAM_TIMING_PAIRS, sk7_ms,
+           sp7_ms, 5, int((srec.long() - sprec.long()).abs().max()),
+           chunk_bound("nwswg_long_walk", scfg, sargs, srec),
+           nwswg_long.kernel_info(scfg, splanes, walk=True))
+    del scodes, sism, sprec
     # K6 on the first STREAM_PAIRS of the chunk too, the 4 kbp CLI runs'
     # size (a quarter wave): latency, where the full chunk shows throughput
     small = tuple(a[:STREAM_PAIRS] for a in args)

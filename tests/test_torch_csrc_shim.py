@@ -23,10 +23,10 @@ import torch
 from aim_tpu_torch.config import AlignConfig
 from aim_tpu_torch.ops import (_build, common, genasm, nw, nwswg_long,
                                probes, swg, wfa2, wfa_long)
-from torch_cases import (CASES, GENASM_CASES, K1_CASES, WFA_LONG_CASES,
-                         case, genasm_case, k1_case, nwswg_case,
-                         nwswg_long_case, nwswg_records, torch_records,
-                         wfa_long_case)
+from torch_cases import (CASES, GENASM_CASES, K1_CASES, K7_CASES,
+                         WFA_LONG_CASES, case, genasm_case, k1_case,
+                         nwswg_case, nwswg_long_case, nwswg_records,
+                         torch_records, wfa_long_case)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LAUNCH = re.compile(r"(\w+)\s*<<<\s*([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>"
@@ -257,7 +257,11 @@ def test_wfa_long_cu_matches_plain_version(lib, name, packed_ok):
                                          packed=packed).numpy())
 
 
-def _nwswg_long_check(lib, name, packed_ok):
+def _nwswg_long_check(lib, name, packed_ok, forward=True):
+    """K6 then K7 under the shim on a named case, against the plain
+    versions; without ``forward``, K7 alone on the plain K6's code rows
+    (garbage past each pair's tlen, as K6 leaves them).  Returns the
+    records."""
     cfg, p, t, pl, tl, planes = nwswg_long_case(name)
     args, packed = _tensors(p, t, pl, tl, cfg.read_size, packed_ok)
     n, R = len(pl), cfg.read_size
@@ -269,19 +273,25 @@ def _nwswg_long_check(lib, name, packed_ok):
     rec = _records(n, NRL, torch.int16)
     weff, lpad = nwswg_long.seq_geometry(cfg, args[0].shape[1], packed,
                                          planes)
-    assert lib.aim_nwswg_long_forward(
-        *(a.data_ptr() for a in args), meta.data_ptr(), codes.data_ptr(),
-        ism.data_ptr(), rec.data_ptr(), n, args[0].shape[1], int(packed),
-        weff, lpad, R, planes, NRL, int(cfg.algo == "swg"),
-        int(cfg.backtrace), cfg.gap_i, cfg.gap_d, cfg.mismatch, cfg.match,
-        cfg.gap_o, cfg.gap_e, cfg.max_score, None) == 0
     want_meta, want_codes, want_ism = nwswg_long.nwswg_long_fwd_reference(
         *args, cfg=cfg, packed=packed, planes=planes)
-    np.testing.assert_array_equal(meta.numpy(), want_meta.numpy())
+    # every row a pair reaches (rows past its tlen are never written by K6
+    # nor read by K7)
+    live = np.arange(R)[None, :] < np.asarray(tl)[:, None]
+    if forward:
+        assert lib.aim_nwswg_long_forward(
+            *(a.data_ptr() for a in args), meta.data_ptr(),
+            codes.data_ptr(), ism.data_ptr(), rec.data_ptr(), n,
+            args[0].shape[1], int(packed), weff, lpad, R, planes, NRL,
+            int(cfg.algo == "swg"), int(cfg.backtrace), cfg.gap_i,
+            cfg.gap_d, cfg.mismatch, cfg.match, cfg.gap_o, cfg.gap_e,
+            cfg.max_score, None) == 0
+        np.testing.assert_array_equal(meta.numpy(), want_meta.numpy())
+    else:
+        meta.copy_(want_meta)
+        codes.numpy()[live] = want_codes.numpy()[live]
+        ism.numpy()[live] = want_ism.numpy()[live]
     if cfg.backtrace:
-        # K6's code rows, every row a pair reaches (rows past its tlen are
-        # never written nor read)
-        live = np.arange(R)[None, :] < np.asarray(tl)[:, None]
         for got, want in ((codes, want_codes), (ism, want_ism)):
             np.testing.assert_array_equal(got.numpy()[live],
                                           want.numpy()[live])
@@ -290,17 +300,31 @@ def _nwswg_long_check(lib, name, packed_ok):
             args[2].data_ptr(), args[3].data_ptr(), rec.data_ptr(), n, R,
             planes, NRL, nwswg_long.block_rows(cfg.algo, planes),
             int(cfg.algo == "swg"), None) == 0
-    np.testing.assert_array_equal(
-        rec.numpy(), nwswg_long.nwswg_forward_long(
-            *args, cfg=cfg, packed=packed, planes=planes).numpy())
+        want = nwswg_long.nwswg_long_walk_reference(
+            want_codes, want_ism, want_meta, args[2], args[3], cfg=cfg,
+            planes=planes)
+    else:
+        want = nwswg_long.score_only_records(want_meta, NRL)
+    np.testing.assert_array_equal(rec.numpy(), want.numpy())
+    return rec.numpy()
 
 
-@pytest.mark.parametrize("name", NWSWG_LONG_SHIM)
+@pytest.mark.parametrize("name", NWSWG_LONG_SHIM + K7_CASES)
 def test_nwswg_long_cu_matches_plain_version(lib, name):
     """K6 + K7 (csrc/nwswg_long.cu) under the shim: meta, code rows and
     records equal to the plain versions, the code-row scratch starting as
-    garbage; 2-bit packed input."""
-    _nwswg_long_check(lib, name, True)
+    garbage; 2-bit packed input.  K7's cases (torch_cases.K7_CASES) reach
+    what they are for: a match run of 4224 rows split in two, walked pairs
+    beside a forward-flagged one; at 4224 rows only K7 runs under the shim
+    (on the plain K6's rows; K6 is held at that length on the card)."""
+    ident = name.startswith("k7_identical")
+    rec = _nwswg_long_check(lib, name, True, forward=not ident)
+    runs = rec[:, 2:].astype(np.int32)
+    if ident:
+        assert list(runs[0][runs[0] != 0] >> 12) == [0, 0]
+    elif name.startswith("k7_"):
+        flagged = (rec[:, 0].astype(np.int32) >> 8) & 1
+        assert flagged[1] and not flagged[[0, 2, 3]].any()
 
 
 @pytest.mark.parametrize("name", ["nw_p1_r200", "swg_p2_r200", "mixed_p1"])

@@ -26,7 +26,8 @@ from aim_tpu_torch.ops import (common, genasm, genasm_long, nw, nw_xla,
                                wfa_long, wfa_xla)
 from aim_tpu_torch.tools import fuzz_kernels, microbench, timing
 from torch_cases import (CASES, DENSE_CASES, GENASM_CASES, GENASM_LONG_CASES,
-                         K1_CASES, MAIN, NWSWG_CASES, NWSWG_LONG_CASES,
+                         K1_CASES, K7_CASES, MAIN, NWSWG_CASES,
+                         NWSWG_LONG_CASES,
                          NWSWG_LONG_WIDE, SAMPLE_N, WFA_LONG_CASES, case,
                          datagen_batch, dense_batch, garbage_padded,
                          genasm_case, genasm_long_case, k1_case, nwswg_case,
@@ -393,6 +394,18 @@ def test_cuda_nwswg_long_registers(cuda_device, algo, planes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("algo", ["nw", "swg"])
+def test_cuda_nwswg_long_walk_registers(cuda_device, algo, planes):
+    """K7 at one and two planes (its is-match window in registers): at most
+    64 registers a thread and no spills, so a 4096-pair chunk walks in one
+    wave too."""
+    info = nwswg_long.kernel_info(derive_long(algo), planes, walk=True)
+    assert info["registers"] <= 64 and info["local_bytes"] == 0
+    assert info["blocks_per_sm"] >= 8 and info["pairs_per_warp"] == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", WFA_LONG_CASES)
 def test_cuda_wfa_long_matches_reference(cuda_device, name):
     """K5 records byte-equal to the plain version, both word layouts."""
@@ -478,10 +491,11 @@ def _long(dev, cfg, p, t, pl, tl, planes, packed, reference=False):
 @pytest.mark.gpu
 @pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
 @pytest.mark.parametrize("name", NWSWG_LONG_CASES + NWSWG_LONG_WIDE +
-                         ["nw_ovf_p1"])
+                         ["nw_ovf_p1"] + K7_CASES)
 def test_cuda_nwswg_long_matches_reference(cuda_device, name, packed):
     """K6/K7 records byte-equal to the plain versions on the card, flagged
-    pairs, planes 1 to 8, NRL 256 to 1024 and score-only runs included."""
+    pairs, planes 1 to 8, NRL 256 to 1024, score-only runs and K7's own
+    cases (torch_cases.K7_CASES) included."""
     cfg, p, t, pl, tl, planes = nwswg_long_case(name)
     got, launches = _long(cuda_device, cfg, p, t, pl, tl, planes, packed)
     assert launches == (1, int(cfg.backtrace))

@@ -552,6 +552,8 @@ def _near_diag(seed, n, lo, hi, R, nerr):
 def nwswg_long_case(name):
     """(cfg, pats, txts, plens, tlens, planes) of one named K6/K7 case."""
     import random
+    if name.startswith("k7_"):
+        return k7_case(name)
     if name == "nw_multiblock":          # :173, 2 row blocks
         return (AlignConfig(read_size=576, **NW_LONG),
                 *_near_diag(77, 12, 430, 560, 576, 10), 1)
@@ -630,6 +632,99 @@ def nwswg_long_case(name):
         return (cfg, *pack(random_pairs(seed=6, n=8, max_len=190,
                                         balanced=False), 200), 2)
     raise KeyError(name)
+
+
+# K7's paths (the walk's one round a step and match pieces from a window of
+# is-match rows): one match run past 4095 bases, across many 32-row words
+# and row blocks; runs that end on a 32-row word's first row and on a row
+# block's (rows 32k - 1 and RB - 1 edited), or one row past it; multi-base
+# gaps (SWG's I and D layers entered and left beside match runs, an NW D-run
+# past the window's 64 band positions); a forward-flagged pair between
+# walked pairs of one block of four; pairs with tlen < 32; planes 1 to 8
+K7_CASES = ["k7_identical_nw_p1", "k7_identical_swg_p2"] + [
+    f"k7_bounds_{algo}_p{planes}" for algo in ("nw", "swg")
+    for planes in (1, 2, 4, 8)]
+
+
+def edited_pair(rng, plen, edits):
+    """A random pattern of plen bases and its text with ``edits``, each
+    (text index, kind, size) in ascending index order: kind "x" substitutes
+    the base at that index, "i" inserts size bases there, "d" deletes size
+    bases there; text index j is row j of the walk."""
+    bases = "ACGT"
+    p = [rng.choice(bases) for _ in range(plen)]
+    t = list(p)
+    for at, kind, size in edits:
+        if kind == "x":
+            t[at] = bases[(bases.index(t[at]) + rng.randrange(1, 4)) % 4]
+        elif kind == "i":
+            t[at:at] = [rng.choice(bases) for _ in range(size)]
+        else:
+            del t[at:at + size]
+    return "".join(p), "".join(t)
+
+
+def _k7_bounds(algo, seed=131):
+    """Pairs whose edits sit at 32-row word and row-block boundaries (rows
+    31, 63, 127, 255, 511, 1023 and one past), beside a forward-flagged pair
+    (index 1, in the first block of four with walked pairs) and pairs with
+    tlen < 32."""
+    import random
+    rng = random.Random(seed)
+    long_ = 1090 if algo == "nw" else 690
+    x = [(j, "x", 1) for j in (31, 255, 511, 1023) if j < long_ - 20]
+    x1 = [(j, "x", 1) for j in (32, 64, 256, 512, 1024) if j < long_ - 20]
+    x2 = [(j, "x", 1) for j in (30, 62, 510, 1022) if j < long_ - 20]
+    pairs = [
+        edited_pair(rng, long_, x + [(600, "x", 1)]),
+        make_pair(rng, 500, 490, 2),                  # plen > tlen + 1
+        edited_pair(rng, long_ - 10, x1),
+        edited_pair(rng, long_ - 20, x2[:2] + [(300, "i", 1), (401, "d", 1)]
+                    + x2[2:]),
+        edited_pair(rng, 17, [(9, "x", 1)]),
+        edited_pair(rng, 30, [(12, "i", 1)]),
+        edited_pair(rng, 5, []),
+        # a deletion of 24 bases (NW's D-run leaves the window's positions)
+        # and an insertion of 24, so that plen = tlen and the pair walks
+        edited_pair(rng, long_ - 30, [(127, "x", 1), (128, "x", 1),
+                                      (400, "d", 24), (long_ - 150, "i",
+                                                       24)]),
+        # gaps of 2 to 4 bases at and across row-block boundaries: SWG's I
+        # layer entered and left beside match runs, its D layer
+        edited_pair(rng, long_ - 5, [(62, "i", 2), (126, "i", 3),
+                                     (200, "d", 4), (254, "i", 3),
+                                     (510, "i", 2)]),
+        edited_pair(rng, long_, []),
+        edited_pair(rng, long_ - 3, [(255, "d", 1), (300, "i", 1),
+                                     (511, "d", 1), (long_ - 200, "i", 1)]),
+        edited_pair(rng, 31, [(0, "x", 1), (30, "x", 1)]),
+    ]
+    return pairs
+
+
+def k7_case(name):
+    """(cfg, pats, txts, plens, tlens, planes) of one named K7 case."""
+    import random
+    planes = int(name.rsplit("_p", 1)[1])
+    if name.startswith("k7_identical"):
+        # identical pairs of 4200 to 4224 bases: one match run of 4224
+        # rows, split where the 32-row pieces pass 4095, across 132 words
+        # and 9 (NW) / 33 (SWG) row blocks; a run of 4210 rows below a
+        # substitution, whose pieces start mid-word; a pair with two
+        # substitutions between
+        algo = name.split("_")[2]
+        R = 4224
+        rng = random.Random(137)
+        pairs = [edited_pair(rng, R, []), edited_pair(rng, 4200, []),
+                 edited_pair(rng, 4100, [(2047, "x", 1), (4095, "x", 1)]),
+                 edited_pair(rng, R, [(4210, "x", 1)])]
+        cfg = AlignConfig(read_size=R, **(NW_LONG if algo == "nw"
+                                          else SWG_LONG))
+        return (cfg, *pack(pairs, R), planes)
+    algo = name.split("_")[2]
+    R = 1100 if algo == "nw" else 700
+    cfg = AlignConfig(read_size=R, **(NW_LONG if algo == "nw" else SWG_LONG))
+    return (cfg, *pack(_k7_bounds(algo), R), planes)
 
 
 def wide_retry_batch():
