@@ -7,8 +7,11 @@ decode them by their grammar (WFA and GenASM step records, packed runs, or
 the dense tiers' direction codes and histories) into scores and CIGARs
 with the native decoders, re-run the pairs a tier flags on the wider bands
 of the retry ladder and then on the exact host oracle, emit the
-reference-format file.  GenASM configs no kernel admits run on the host
-tier: the oracle is their compute path.  The host runtime (parser, record
+reference-format file.  ``device`` is one device or a list of them: a
+list shards each chunk into one contiguous block an entry, as
+``aim_tpu``'s ``shard_map`` over its pair mesh does (``parallel.mesh``).
+GenASM configs no kernel admits run on the host tier: the oracle is their
+compute path.  The host runtime (parser, record
 decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``;
 ``align_file`` can trace the align span (``profile_dir``) and measure its
 energy (``energy``: the GPU's NVML counter, the host's RAPL counters).
@@ -60,9 +63,28 @@ class AlignResult:
     energy_measured_j: float | None = None
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _device_list(device) -> list[torch.device]:
+    """``device``, one device or a sequence of them, as a list: each entry
+    one shard, in order (an entry may repeat).  Raises on an empty list and
+    on a CUDA device this host does not have."""
+    if isinstance(device, (str, torch.device)):
+        devs = [torch.device(device)]
+    else:
+        devs = [torch.device(d) for d in device]
+    if not devs:
+        raise ValueError("no device to align on")
+    for d in devs:
+        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"{d}: this host has "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
+    return devs
+
+
+def _sync(devices: list[torch.device]):
+    """Wait for every CUDA device of the list."""
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _device_memory_budget(device: torch.device) -> int:
@@ -74,28 +96,77 @@ def _device_memory_budget(device: torch.device) -> int:
     return DEFAULT_BUDGET
 
 
-def _memory_batch_cap(cfg: AlignConfig, device: torch.device,
+def _memory_batch_cap(cfg: AlignConfig, device,
                       budget_bytes: int | None = None,
                       packed_ok: bool = True,
                       per_pair: int | None = None) -> int:
-    """Pairs per chunk that fit the device budget, at the per-pair
-    footprint of the kernel that serves the config (uploads, records,
-    global scratch) unless ``per_pair`` gives another."""
+    """Pairs per chunk that fit the smallest budget of ``device`` (one
+    device or a list), at the per-pair footprint of the kernel that serves
+    the config (uploads, records, global scratch) unless ``per_pair``
+    gives another."""
     if budget_bytes is None:
-        budget_bytes = _device_memory_budget(device)
+        budget_bytes = min(_device_memory_budget(d)
+                           for d in dict.fromkeys(_device_list(device)))
     if per_pair is None:
         per_pair = kernels.forward_fn(cfg, packed_ok).device_bytes_per_pair
     return max(256, budget_bytes // per_pair)
 
 
-def _plan_bs(cfg: AlignConfig, n: int, device: torch.device,
+def _plan_bs(cfg: AlignConfig, n: int, devices,
              packed_ok: bool = True) -> int:
-    """Chunk size: cfg.batch_pairs, capped by device memory and by the
-    batch itself, rounded to 8."""
+    """Chunk size (aim_tpu/api.py:439-448): cfg.batch_pairs, capped by
+    device memory and by the batch itself, rounded to 8 a device of
+    ``devices`` (one device or a list), so that each device's block is
+    ``bs // ndev`` pairs."""
+    align_to = max(8, 8 * len(_device_list(devices)))
     bs = min(cfg.batch_pairs,
-             _memory_batch_cap(cfg, device, packed_ok=packed_ok),
-             round_up(n, 8))
-    return max(round_up(bs, 8), 8)
+             _memory_batch_cap(cfg, devices, packed_ok=packed_ok),
+             round_up(n, align_to))
+    return max(round_up(bs, align_to), align_to)
+
+
+def _deal_order(order, n: int, bs: int, ndev: int):
+    """Shard-aware dealing of a difficulty-sorted order (VERDICT r3 item
+    5): within each device chunk, sorted pairs are dealt round-robin
+    across the ndev contiguous device blocks, so every shard gets a
+    balanced difficulty mix (a contiguously sharded globally-sorted
+    batch would hand one device all the hardest pairs and the dispatch
+    would wait on it) while each block stays internally sorted — the
+    tile-grouping win the sort exists for (SURVEY §7.3)."""
+    perm = np.empty(n, dtype=order.dtype)
+    blk = max(1, bs // ndev)
+    for c0 in range(0, n, bs):
+        m = min(bs, n - c0)
+        band = order[c0:c0 + m]
+        pos = np.arange(m)
+        # Dealing order: visit chunk positions by (slot-within-block,
+        # block) so turn j lands in block j % ndev at slot j // ndev.
+        deal = np.lexsort((pos // blk, pos % blk))
+        perm[c0 + deal] = band
+    return perm
+
+
+def _blocks(lo: int, hi: int, bs: int, devices):
+    """The non-empty blocks of chunk [lo, hi) of a ``bs``-pair plan as
+    (device, b0, b1): one contiguous block of ``bs // ndev`` pairs a
+    device, in order; the tail chunk's last blocks may be short or
+    empty."""
+    blk = bs // len(devices)
+    for d, dev in enumerate(devices):
+        b0 = lo + d * blk
+        b1 = min(b0 + blk, hi)
+        if b0 < b1:
+            yield dev, b0, b1
+
+
+def _gather(parts):
+    """One chunk's host records from its blocks' (arrays, or dicts of
+    arrays), in pair order."""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], dict):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
 
 
 def _difficulty_order(pats, txts, plens, tlens):
@@ -119,11 +190,21 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     ``device``.  Returns scores (+ ops buffers when cfg.backtrace).
     Device work runs in cfg.batch_pairs chunks.
 
+    ``device`` is one device or a sequence of them, each entry one shard:
+    every chunk splits into one contiguous block an entry, in order, each
+    block's kernel runs on its device (the blocks of a chunk are launched
+    on all devices before any is waited for), and the records come back in
+    pair order; a block's flagged pairs climb the retry ladder on its
+    device.  The output is the one-device run's, byte for byte.
+
     As in ``aim_tpu.api.align``, long reads (read_size >= 1024, more than
     128 pairs) run in estimated-difficulty order; AIM_TPU_SORT=0 turns
-    that off, =1 on for any read size.  The output order is the input's;
-    the sort's host time counts in ``t_load``."""
+    that off, =1 on for any read size.  Over several devices the sorted
+    order is dealt round-robin across each chunk's blocks
+    (``_deal_order``).  The output order is the input's; the sort's host
+    time counts in ``t_load``."""
     cfg.validate()
+    devs = _device_list(device)
     plens = np.ascontiguousarray(plens, np.int32)
     tlens = np.ascontiguousarray(tlens, np.int32)
     n = pats.shape[0]
@@ -133,12 +214,14 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     sort_on = sort_env == "1" if sort_env in ("0", "1") \
         else cfg.read_size >= 1024
     if not (sort_on and n > 128):
-        return _align_impl(pats, txts, plens, tlens, cfg, device)
+        return _align_impl(pats, txts, plens, tlens, cfg, devs)
     t0 = time.perf_counter()
     order = _difficulty_order(pats, txts, plens, tlens)
+    if len(devs) > 1:
+        order = _deal_order(order, n, _plan_bs(cfg, n, devs), len(devs))
     t_sort = time.perf_counter() - t0
     res = _align_impl(pats[order], txts[order], plens[order], tlens[order],
-                      cfg, device)
+                      cfg, devs)
     inv = np.empty_like(order)
     inv[order] = np.arange(n)
     return AlignResult(
@@ -152,8 +235,7 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
 
 
 def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
-                device) -> AlignResult:
-    device = torch.device(device)
+                devices: list[torch.device]) -> AlignResult:
     n = pats.shape[0]
     R = cfg.read_size
     max_ops = 2 * R
@@ -182,39 +264,46 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         if cfg.backtrace:
             ops[:], begin[:], end[:] = oops, ob, oe
         return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
-    bs = _plan_bs(cfg, n, device, packed_ok=packed)
+    bs = _plan_bs(cfg, n, devices, packed_ok=packed)
     if fwd.records in kernels.DENSE_RECORDS:
         up_pats, up_txts, packed = pats, txts, False
     starts = list(range(0, n, bs))
+    # a chunk's blocks as [(device, b0, b1, host records)], in pair order
     records = []
     for w0 in range(0, len(starts), WAVE):
         wave = starts[w0:w0 + WAVE]
         t0 = time.perf_counter()
-        uploads = [to_device_batch(up_pats[lo:lo + bs], up_txts[lo:lo + bs],
-                                   plens[lo:lo + bs], tlens[lo:lo + bs],
-                                   device) for lo in wave]
-        _sync(device)
+        uploads = [[(dev, b0, b1,
+                     to_device_batch(up_pats[b0:b1], up_txts[b0:b1],
+                                     plens[b0:b1], tlens[b0:b1], dev))
+                    for dev, b0, b1 in _blocks(lo, min(lo + bs, n), bs,
+                                               devices)]
+                   for lo in wave]
+        _sync(devices)
         res.t_load += time.perf_counter() - t0
 
         outs = []
-        for args in uploads:
+        for blocks in uploads:
             t1 = time.perf_counter()
-            outs.append(fwd(*args, cfg=cfg, packed=packed))
-            _sync(device)
+            outs.append([(dev, b0, b1, fwd(*args, cfg=cfg, packed=packed))
+                         for dev, b0, b1, args in blocks])
+            _sync(devices)
             res.t_kernel += time.perf_counter() - t1
         del uploads
 
         t2 = time.perf_counter()
-        records.extend({k: v.cpu().numpy() for k, v in o.items()}
-                       if isinstance(o, dict) else o.cpu().numpy()
-                       for o in outs)
+        records.extend(
+            [(dev, b0, b1, {k: v.cpu().numpy() for k, v in o.items()}
+              if isinstance(o, dict) else o.cpu().numpy())
+             for dev, b0, b1, o in blocks] for blocks in outs)
         res.t_retrieve += time.perf_counter() - t2
         del outs
 
     smax = cfg.max_score
     retry_stages = _retry_stages(fwd)
-    for lo, rec in zip(starts, records):
+    for lo, blocks in zip(starts, records):
         chunk = slice(lo, min(lo + bs, n))
+        rec = _gather([r for _, _, _, r in blocks])
         flagged = None
         if fwd.records in kernels.DENSE_RECORDS:
             _decode_dense(fwd.records, rec, cfg, chunk, pats, txts, plens,
@@ -245,15 +334,20 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
                 ops[chunk], begin[chunk], end[chunk] = o, b, e
         if flagged is None or not len(flagged):
             continue
-        # flagged pairs: the wider bands of the ladder on the device, then
-        # the exact host oracle for what they still flag
-        sel = flagged
-        for p in retry_stages:
-            if not len(sel):
-                break
-            sel = _retry_wide(fwd, cfg, pats[chunk], txts[chunk],
-                              plens[chunk], tlens[chunk], sel, scores, ops,
-                              begin, end, lo, max_ops, device, res, planes=p)
+        # flagged pairs: the wider bands of the ladder on the device of
+        # their block, then the exact host oracle for what they still flag
+        left = []
+        for dev, b0, b1, _ in blocks:
+            sel = flagged[(flagged >= b0 - lo) & (flagged < b1 - lo)]
+            for p in retry_stages:
+                if not len(sel):
+                    break
+                sel = _retry_wide(fwd, cfg, pats[chunk], txts[chunk],
+                                  plens[chunk], tlens[chunk], sel, scores,
+                                  ops, begin, end, lo, max_ops, dev, res,
+                                  planes=p)
+            left.append(sel)
+        sel = np.concatenate(left)
         if not len(sel):
             continue
         sel = lo + sel
@@ -440,33 +534,34 @@ def device_name(device: torch.device) -> str:
 
 def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
                      device):
-    """The dpu-out analogue: one line for the device with its run."""
-    device = torch.device(device)
-    label = f"GPU {device.index or 0}" if device.type == "cuda" else "CPU"
+    """The dpu-out analogue (aim_tpu/api.py:833-846): one line a device
+    of ``device`` (one device or a list) with the run."""
     stages = ",".join(f"{p}:{k}" for p, k in
                       sorted(res.retry_by_planes.items())) or "-"
     with open(path, "w") as f:
-        f.write(f"{label}: {device_name(device)} | "
-                f"algo={cfg.algo} max_score={cfg.max_score} "
-                f"read_size={cfg.read_size} backtrace={cfg.backtrace} "
-                f"adaptive={cfg.adaptive} pairs={n} "
-                f"load_s={res.t_load:.6f} kernel_s={res.t_kernel:.6f} "
-                f"retrieve_s={res.t_retrieve:.6f} "
-                f"fallback={res.n_fallback} retry={res.n_retry} "
-                f"retry_by_planes={stages}\n")
+        for dev in _device_list(device):
+            label = f"GPU {dev.index or 0}" if dev.type == "cuda" else "CPU"
+            f.write(f"{label}: {device_name(dev)} | "
+                    f"algo={cfg.algo} max_score={cfg.max_score} "
+                    f"read_size={cfg.read_size} backtrace={cfg.backtrace} "
+                    f"adaptive={cfg.adaptive} pairs={n} "
+                    f"load_s={res.t_load:.6f} kernel_s={res.t_kernel:.6f} "
+                    f"retrieve_s={res.t_retrieve:.6f} "
+                    f"fallback={res.n_fallback} retry={res.n_retry} "
+                    f"retry_by_planes={stages}\n")
 
 
-def _profiled_align(profile_dir, pats, txts, plens, tlens, cfg, device):
-    """``align`` under torch.profiler (CPU activities, and CUDA ones on a
-    CUDA device), its trace written to ``profile_dir/trace.json`` as a
-    chrome trace."""
+def _profiled_align(profile_dir, pats, txts, plens, tlens, cfg, devices):
+    """``align`` under torch.profiler (CPU activities, and CUDA ones when
+    a device of the list is CUDA), its trace written to
+    ``profile_dir/trace.json`` as a chrome trace."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if any(d.type == "cuda" for d in devices):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        res = align(pats, txts, plens, tlens, cfg, device)
-        _sync(device)
+        res = align(pats, txts, plens, tlens, cfg, devices)
+        _sync(devices)
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     return res
@@ -478,32 +573,32 @@ def align_file(input_path: str, output_path: str, n_reads: int,
                profile_dir: str | None = None) -> AlignResult:
     """File-to-file pipeline (the reference host main, host.c:136).
     n_reads is the number of PAIRS requested; fewer are aligned if the
-    file is shorter.
+    file is shorter.  ``device``: one device or a list, as in ``align``.
 
     profile_dir: a torch.profiler trace of the align span is written there
     (``trace.json``, chrome format).  energy: the GPU's and the host's
     energy over the align span are measured and printed (NVML's
     total-energy counter, RAPL); what cannot be read is reported as not
     measured, never estimated."""
-    device = torch.device(device)
+    devs = _device_list(device)
     t0 = time.perf_counter()
     pats, txts, plens, tlens = native.parse_pairs(input_path, n_reads,
                                                   cfg.read_size, threads=0)
     t_parse = time.perf_counter() - t0
-    meter = _energy.Meter(device) if energy else None
+    meter = _energy.Meter(devs) if energy else None
     if profile_dir:
         res = _profiled_align(profile_dir, pats, txts, plens, tlens, cfg,
-                              device)
+                              devs)
     else:
-        res = align(pats, txts, plens, tlens, cfg, device)
+        res = align(pats, txts, plens, tlens, cfg, devs)
     if meter is not None:
-        _sync(device)
+        _sync(devs)
         res.gpu_energy_j, res.energy_measured_j = meter.stop()
     n = len(res.scores)
     native.emit_output(output_path, np.arange(n, dtype=np.int32), res.scores,
                        res.ops, res.begin, res.end, cfg.backtrace)
     if device_log:
-        write_device_log(device_log, cfg, res, n, device)
+        write_device_log(device_log, cfg, res, n, devs)
     if verbose:
         print(f"Parsed {n} pairs in {t_parse * 1e3:.3f} ms")
         print(f"CPU-GPU: {res.t_load * 1e3:f} ms")
@@ -521,4 +616,8 @@ def align_file(input_path: str, output_path: str, n_reads: int,
             if res.energy_measured_j is not None:
                 print(f"Host Energy (J, measured, RAPL package+DRAM over "
                       f"the align span): {res.energy_measured_j:f}")
+        if res.n_retry:
+            print(f"wide-band device retry pairs: {res.n_retry}")
+        if res.n_fallback:
+            print(f"host-oracle fallback pairs: {res.n_fallback}")
     return res

@@ -1,4 +1,4 @@
-"""aim-tpu-torch command-line launcher (one NVIDIA GPU).
+"""aim-tpu-torch command-line launcher (NVIDIA GPUs).
 
 The same flags, config derivation and output as ``aim_tpu.cli``; its
 ``build_parser`` and ``config_from_args`` are copies of that module's
@@ -39,8 +39,12 @@ puts every config there:
 ``--profile DIR`` writes a torch.profiler chrome trace (CPU and CUDA
 activities) of the align span to DIR/trace.json; ``--energy`` prints the
 GPU energy of the align span from NVML's total-energy counter, and the
-host's from RAPL where the host has it.  ``-d`` caps the device count at 1
-(multi-GPU is ROADMAP Queue 1 item 9).
+host's from RAPL where the host has it.  The run shards its pairs over
+every CUDA device of the host, as ``aim_tpu.cli`` does over its devices;
+``-d N`` caps the count at N.  Each chunk splits into one contiguous block
+a card, and the output file is the one-card run's, byte for byte.  Across
+processes (hosts), ``python -m aim_tpu_torch.parallel.runner`` runs the
+same command on each process's contiguous range of the file.
 """
 
 from __future__ import annotations
@@ -221,16 +225,21 @@ def main(argv=None) -> int:
         print(f"algo={cfg.algo} MAX_SCORE={cfg.max_score} "
               f"READ_SIZE={cfg.read_size} backtrace={cfg.backtrace} "
               f"adaptive={cfg.adaptive} variant={cfg.variant}")
-    ndev = min(torch.cuda.device_count(), 1)
+    ndev = torch.cuda.device_count()
     if args.nr_of_dpus:
         ndev = min(ndev, args.nr_of_dpus)
     if args.number_reads <= ndev:
         # ref: host.c:180-184 rejects total_nb_reads <= NR_DPUS
         print("Allocated DPUs more than needed")
         return 1
+    if ndev > 1 and not args.quiet:
+        print(f"Allocated {ndev} device(s)")  # ref: host.c:189
+        per = ((args.number_reads // ndev) + 7) // 8 * 8
+        print(f"NumReads per device = {per}")  # ref: host.c:192
     from aim_tpu_torch.api import align_file
+    from aim_tpu_torch.parallel import devices
     align_file(args.input, args.output, args.number_reads, cfg,
-               device=torch.device("cuda", 0), verbose=not args.quiet,
+               device=devices(max(ndev, 1)), verbose=not args.quiet,
                device_log=args.device_log or None, energy=args.energy,
                profile_dir=args.profile or None)
     return 0

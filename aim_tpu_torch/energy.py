@@ -69,29 +69,32 @@ class _Nvml:
 class Meter:
     """Reads both counters now; ``stop()`` returns (GPU J, host J) since
     then, each None where not measured (``gpu_missing`` says why for the
-    GPU)."""
+    GPU).  The GPU joules are the sum over the distinct CUDA cards of
+    ``devices`` (a list of ``torch.device``)."""
 
-    def __init__(self, device):
-        device = torch.device(device)
+    def __init__(self, devices):
+        cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
         self.gpu_missing = None
-        self._nvml = None
-        self._gpu0 = None
-        if device.type != "cuda":
-            self.gpu_missing = f"the run is on {device.type}, not a GPU"
+        self._nvml = []
+        self._gpu0 = []
+        if not cards:
+            where = ", ".join(map(str, dict.fromkeys(devices)))
+            self.gpu_missing = f"the run is on {where}, not a GPU"
         else:
             try:
-                self._nvml = _Nvml(device)
-                self._gpu0 = self._nvml.energy_mj()
+                self._nvml = [_Nvml(d) for d in cards]
+                self._gpu0 = [m.energy_mj() for m in self._nvml]
             except (OSError, AttributeError) as e:
                 self.gpu_missing = f"NVML unavailable: {e}"
-                self._nvml = None
+                self._nvml = []
         self._host0 = read_host_energy_uj()
 
     def stop(self):
         gpu = host = None
-        if self._nvml is not None:
+        if self._nvml:
             try:
-                gpu = (self._nvml.energy_mj() - self._gpu0) / 1e3
+                gpu = sum(m.energy_mj() - g0 for m, g0 in
+                          zip(self._nvml, self._gpu0)) / 1e3
             except OSError as e:
                 self.gpu_missing = f"NVML read failed: {e}"
         if self._host0 is not None:

@@ -77,6 +77,23 @@ before the last line:
   8. tools    `--profile` on `wfa -b -r` on the sample leaves a chrome
               trace with kernel events; `--energy` on the 1M-pair main
               path prints the GPU joules NVML measured, above 0.
+  9. multi    pair sharding: `api.align_file` over `[cuda:0] * 4` (and
+              over every card where there are more) on the 1M-pair main
+              path, `nw -b`, `swg -b`, `genasm -b` on the sample, the
+              first 1,024 of the 10 kbp pairs (`-b -r`, sorted and dealt
+              over the shards) and K2's ladder input; each output
+              `cmp`-equal to the one-device run's and to the oracle's,
+              the run's kernel launched once a non-empty block (the
+              ladder's K6/K7 above 0) and no other kernel, one device-log
+              line a shard; the CLI with `-d` at the card count (the
+              `Allocated` lines only over several cards); the runner
+              (`aim_tpu_torch.parallel.runner`) in two processes with RANK,
+              WORLD_SIZE and a file store, on cuda:(rank % cards), on the
+              sample and the main input: the joined file `cmp`-equal, no
+              part left; `tools.dryrun_multichip` over 4 shards.
+
+`python3 chip_smoke.py --only multi` runs phases 1 and 9 alone (a host
+with several cards), making the inputs and one-device runs phase 9 needs.
 
 The last two lines are the kernel table (time, plain time, the bound the
 card sets for the same work and what sets it, launches on the main path)
@@ -885,7 +902,10 @@ def phase_genasm_long_kernel():
 
 
 def read_device_log(path):
-    fields = open(path).read().split("|", 1)[1].split()
+    """The fields of a device log's first line (a sharded run writes the
+    same fields on one line a device)."""
+    with open(path) as f:
+        fields = f.readline().split("|", 1)[1].split()
     return dict(f.split("=", 1) for f in fields)
 
 
@@ -906,10 +926,9 @@ def launch_counters():
             "dense_wfa": (wfa_xla, "call_count")}
 
 
-def run_cli(argv, out, log, env=None, quiet=True):
-    """One CLI run with every launch counter set to 0 just before it;
-    returns (wall s, {kernel: launches}, device log)."""
-    from aim_tpu_torch import cli
+def counted(call, env=None):
+    """``call()`` under ``env`` with every launch counter set to 0 just
+    before it; returns (its value, wall s, {kernel: launches})."""
     mods = launch_counters()
     saved = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
@@ -917,8 +936,7 @@ def run_cli(argv, out, log, env=None, quiet=True):
         setattr(mod, attr, 0)
     try:
         t0 = time.perf_counter()
-        rc = cli.main(argv + ["-o", out, "--device-log", log]
-                      + (["-q"] if quiet else []))
+        value = call()
         wall = time.perf_counter() - t0
         launches = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
     finally:
@@ -927,6 +945,16 @@ def run_cli(argv, out, log, env=None, quiet=True):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return value, wall, launches
+
+
+def run_cli(argv, out, log, env=None, quiet=True):
+    """One CLI run with every launch counter set to 0 just before it;
+    returns (wall s, {kernel: launches}, device log)."""
+    from aim_tpu_torch import cli
+    rc, wall, launches = counted(
+        lambda: cli.main(argv + ["-o", out, "--device-log", log]
+                         + (["-q"] if quiet else [])), env)
     if rc != 0:
         fail(f"cli {argv} returned {rc}")
     return wall, launches, read_device_log(log)
@@ -998,12 +1026,13 @@ def ladder_stages(log):
 def phase_main(smi, tmp):
     """Every CLI run, its files in ``tmp``; returns {kernel: launches in its
     canonical run} (the 1M-pair `-b` run at 100 bp, the 8,192-pair `-b -r`
-    run at 10 kbp, the `nw -b` run at 4 kbp).  The main path's input and
-    its oracle output stay in ``tmp`` as MAIN_INPUT and MAIN_ORACLE."""
+    run at 10 kbp, the `nw -b` run at 4 kbp) and {argv: (output file,
+    oracle file)}.  The main path's input and its oracle output stay in
+    ``tmp`` as MAIN_INPUT and MAIN_ORACLE."""
     from aim_tpu_torch import datagen
     from aim_tpu_torch.cli import build_parser, config_from_args
     gpu = torch.cuda.get_device_name(0)
-    main_launches = {}
+    main_launches, files = {}, {}
     inp = os.path.join(tmp, MAIN_INPUT)
     t0 = time.perf_counter()
     datagen.write_pair_file(inp, MAIN_PAIRS, 100, 0.01, seed=SEED)
@@ -1056,6 +1085,7 @@ def phase_main(smi, tmp):
                                       env)
         n_done, t_mt, t_file, batch = oracle_file(ref, src, n, cfg)
         same = filecmp.cmp(out, ref, shallow=False)
+        files[" ".join(argv)] = (out, ref)
         kern = kerns[0]
         stages = ladder_stages(log)
         row = {"phase": "main", "input": label, "argv": " ".join(argv),
@@ -1105,7 +1135,7 @@ def phase_main(smi, tmp):
         if label == LADDER_100_LABEL and not stages.get(2):
             fail(f"{argv}: expected pairs certified at two planes: "
                  f"{stages}")
-    return main_launches
+    return main_launches, files
 
 
 # int32 operations a cell or wavefront diagonal, the least each kernel's
@@ -1543,6 +1573,204 @@ def phase_tools(smi, tmp):
         fail(f"--energy: {row}")
 
 
+# phase 9: the shards of an in-process run on cuda:0 (and one a card where
+# the host has more than one), the 10 kbp run's pairs, the runner's
+# processes
+MULTI_SHARDS = 4
+MULTI_LONG_PAIRS = 1_024
+RUNNER_PROCS = 2
+
+
+def multi_runs(tmp):
+    """(input label, file, pairs, argv, kernel, retry kernels) of phase 9's
+    sharded runs."""
+    hundred = ["-l", "100", "-e", "0.01"]
+    long_ = ["-l", "10000", "-e", "0.01", "-b", "-r", "--variant", "hbm"]
+    main = os.path.join(tmp, MAIN_INPUT)
+    return ([("datagen", main, MAIN_PAIRS, ["wfa"] + hundred + ["-b", "-r"],
+              "wfa", ())]
+            + [("sample-l100-e1-2K", SAMPLE, 1000, [a] + hundred + ["-b"], a,
+                ()) for a in ("nw", "swg", "genasm")]
+            + [("datagen-10kbp", os.path.join(tmp, "pairs_10k.txt"),
+                MULTI_LONG_PAIRS, ["wfa"] + long_, "wfa_long", ()),
+               (LADDER_100_LABEL, os.path.join(tmp, "pairs_e10.txt"),
+                LADDER_100_PAIRS, ["nw"] + hundred + ["-b"], "nw",
+                STREAM_KERNELS)])
+
+
+def ensure_inputs(tmp):
+    """The generated inputs phase 3 writes, where it has not run."""
+    from aim_tpu_torch import datagen
+    for name, n, length, err, seed in (
+            (MAIN_INPUT, MAIN_PAIRS, 100, 0.01, SEED),
+            ("pairs_10k.txt", LONG_PAIRS, 10000, 0.01, SEED),
+            ("pairs_e10.txt", LADDER_100_PAIRS, 100, 0.1, SEED + 6)):
+        path = os.path.join(tmp, name)
+        if not os.path.exists(path):
+            datagen.write_pair_file(path, n, length, err, seed=seed)
+
+
+def one_device_files(argv, src, n, tmp, files):
+    """(one-device output, oracle output) of a run: phase 3's files, or a
+    one-device CLI run and the oracle's file made now."""
+    from aim_tpu_torch.cli import build_parser, config_from_args
+    key = " ".join([argv[0], "-i", src, "-n", str(n)] + argv[1:])
+    if key not in files:
+        tag = len(files)
+        out, ref = (os.path.join(tmp, f"multi_{k}{tag}")
+                    for k in ("one", "oracle"))
+        full = [argv[0], "-i", src, "-n", str(n)] + argv[1:]
+        run_cli(full + ["-d", "1"], out, os.path.join(tmp, "log"))
+        oracle_file(ref, src, n, config_from_args(
+            build_parser().parse_args(full)))
+        files[key] = (out, ref)
+    return files[key]
+
+
+def expected_blocks(cfg, n, devs):
+    """The non-empty blocks of an n-pair run over ``devs``: one launch
+    each of the run's kernel (DNA inputs pack)."""
+    from aim_tpu_torch import api
+    bs = api._plan_bs(cfg, n, devs)
+    return sum(1 for lo in range(0, n, bs)
+               for _ in api._blocks(lo, min(lo + bs, n), bs, devs))
+
+
+def run_runner(argv, out, store, n_procs):
+    """``aim_tpu_torch.parallel.runner`` in ``n_procs`` processes (RANK,
+    WORLD_SIZE and a file store); returns (wall s, their outputs)."""
+    cmd = [sys.executable, "-m", "aim_tpu_torch.parallel.runner"] + argv + \
+        ["-o", out, "-q", "--init-method", f"file://{store}"]
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env=dict(env, RANK=str(r),
+                                       WORLD_SIZE=str(n_procs)))
+             for r in range(n_procs)]
+    try:
+        texts = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, text in zip(procs, texts):
+        if p.returncode != 0:
+            fail(f"runner {argv} exited {p.returncode}:\n{text[-4000:]}")
+    return wall, texts
+
+
+def phase_multi(smi, tmp, files):
+    """Pair sharding: the sharded runs over each device list, each
+    `cmp`-equal to its one-device run and to the oracle, the run's kernel
+    launched once a non-empty block (its retry kernels above 0 on the
+    ladder input) and no other; the CLI with -d at the card count; the
+    runner in RUNNER_PROCS processes on the sample and the main input;
+    tools.dryrun_multichip over MULTI_SHARDS shards."""
+    import contextlib
+    import glob
+    import io
+    from aim_tpu_torch import api
+    from aim_tpu_torch.cli import build_parser, config_from_args
+    from aim_tpu_torch.parallel import devices
+    from aim_tpu_torch.tools import dryrun_multichip
+    gpu = torch.cuda.get_device_name(0)
+    n_cards = torch.cuda.device_count()
+    ensure_inputs(tmp)
+    lists = [devices(1) * MULTI_SHARDS] + ([devices()] if n_cards > 1
+                                           else [])
+    out, log = os.path.join(tmp, "multi_out"), os.path.join(tmp, "log")
+    for label, src, n, argv, kern, retry_kerns in multi_runs(tmp):
+        one, ref = one_device_files(argv, src, n, tmp, files)
+        cfg = config_from_args(build_parser().parse_args(
+            [argv[0], "-i", src] + argv[1:] + ["-n", str(n)]))
+        for devs in lists:
+            res, wall, launches = counted(lambda: api.align_file(
+                src, out, n, cfg, device=devs, verbose=False,
+                device_log=log))
+            blocks = expected_blocks(cfg, len(res.scores), devs)
+            with open(log) as f:
+                log_lines = f.read().splitlines()
+            others = {k: v for k, v in launches.items()
+                      if v and k != kern and k not in retry_kerns}
+            row = {"phase": "multi", "input": label,
+                   "argv": " ".join(argv), "pairs": len(res.scores),
+                   "shards": len(devs),
+                   "cards": len({str(d) for d in devs}),
+                   "kernel": kern, "launches": launches[kern],
+                   "blocks": blocks,
+                   "retry_launches": {k: launches[k] for k in retry_kerns},
+                   "other_launches": others,
+                   "fallback": res.n_fallback, "retry": res.n_retry,
+                   "device_log_lines": len(log_lines),
+                   "t_load_s": res.t_load, "t_kernel_s": res.t_kernel,
+                   "t_retrieve_s": res.t_retrieve, "e2e_s": wall,
+                   "cmp_one_device": filecmp.cmp(out, one, shallow=False),
+                   "cmp_oracle": filecmp.cmp(out, ref, shallow=False),
+                   "gpu": gpu, "nvidia_smi": smi}
+            emit(row)
+            if not (row["cmp_one_device"] and row["cmp_oracle"]
+                    and launches[kern] == blocks and not others
+                    and all(launches[k] > 0 for k in retry_kerns)
+                    and len(log_lines) == len(devs)
+                    and len(res.scores) == n):
+                fail(f"sharded {argv} over {len(devs)} shards: {row}")
+    # the CLI over every card: -d at the card count
+    hundred = ["-l", "100", "-e", "0.01", "-b", "-r"]
+    argv = ["wfa", "-i", SAMPLE, "-n", "1000"] + hundred
+    one, ref = one_device_files(["wfa"] + hundred, SAMPLE, 1000, tmp, files)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        wall, launches, _ = run_cli(argv + ["-d", str(n_cards)], out, log,
+                                    quiet=False)
+    text = buf.getvalue().splitlines()
+    alloc = [ln for ln in text if ln.startswith(("Allocated",
+                                                 "NumReads per device"))]
+    want = [f"Allocated {n_cards} device(s)",
+            f"NumReads per device = {((1000 // n_cards) + 7) // 8 * 8}"] \
+        if n_cards > 1 else []
+    blocks = expected_blocks(config_from_args(build_parser().parse_args(
+        argv)), 1000, devices())
+    row = {"phase": "multi", "tool": "cli", "argv": " ".join(argv + [
+        "-d", str(n_cards)]), "cards": n_cards, "lines": alloc,
+        "launches": launches["wfa"], "blocks": blocks, "e2e_s": wall,
+        "cmp_one_device": filecmp.cmp(out, one, shallow=False),
+        "cmp_oracle": filecmp.cmp(out, ref, shallow=False), "gpu": gpu}
+    emit(row)
+    if not (alloc == want and launches["wfa"] == blocks
+            and row["cmp_one_device"] and row["cmp_oracle"]):
+        fail(f"cli -d {n_cards}: {row}")
+    # the runner: RUNNER_PROCS processes, each on cuda:(rank % cards)
+    for label, src, n in (("sample-l100-e1-2K", SAMPLE, 1000),
+                          ("datagen", os.path.join(tmp, MAIN_INPUT),
+                           MAIN_PAIRS)):
+        one, ref = one_device_files(["wfa"] + hundred, src, n, tmp, files)
+        argv = ["wfa", "-i", src, "-n", str(n)] + hundred
+        joined = os.path.join(tmp, f"runner_{label}")
+        wall, _ = run_runner(argv, joined,
+                             os.path.join(tmp, f"store_{label}"),
+                             RUNNER_PROCS)
+        left = glob.glob(joined + ".part*")
+        row = {"phase": "multi", "tool": "runner", "input": label,
+               "argv": " ".join(argv), "processes": RUNNER_PROCS,
+               "devices": [f"cuda:{r % n_cards}"
+                           for r in range(RUNNER_PROCS)],
+               "wall_s": wall, "parts_left": left,
+               "cmp_one_device": filecmp.cmp(joined, one, shallow=False),
+               "cmp_oracle": filecmp.cmp(joined, ref, shallow=False),
+               "gpu": gpu}
+        emit(row)
+        if left or not (row["cmp_one_device"] and row["cmp_oracle"]):
+            fail(f"runner on {label}: {row}")
+    t0 = time.perf_counter()
+    for rep in dryrun_multichip.dryrun(MULTI_SHARDS):
+        emit({"phase": "multi", "tool": "dryrun_multichip", **rep})
+    emit({"phase": "multi", "tool": "dryrun_multichip",
+          "seconds": time.perf_counter() - t0})
+
+
 KERNELS = [("wfa2", "wfa", "aim_tpu_torch/csrc/wfa2.cu",
             "aim_tpu/ops/wfa_pallas2.py:72"),
            ("nw", "nw", "aim_tpu_torch/csrc/nw.cu",
@@ -1561,20 +1789,35 @@ KERNELS = [("wfa2", "wfa", "aim_tpu_torch/csrc/wfa2.cu",
             "aim_tpu/ops/nwswg_pallas_long.py:585")]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "multi"]):
+        print("usage: chip_smoke.py [--only multi]", file=sys.stderr)
+        return 2
     smi = phase_device()
+    if argv:
+        # phase 9 alone (a host with several cards): it makes the inputs
+        # and one-device runs it needs
+        with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
+            phase_multi(smi, tmp, {})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     max_err = {"wfa": phase_kernel()}
     max_err.update(phase_band_kernels())
     max_err["genasm"] = phase_genasm_kernel()
     max_err["wfa_long"] = phase_long_kernel()
     max_err.update(phase_stream_kernel())
     with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
-        launches = phase_main(smi, tmp)
+        launches, files = phase_main(smi, tmp)
         timing = phase_timing()
         probe_rows = phase_probes(smi)
         phase_dense(smi, tmp)
         phase_fuzz()
         phase_tools(smi, tmp)
+        phase_multi(smi, tmp, files)
     table = []
     for name, key, src, replaces in KERNELS:
         k_ms, p_ms, err, b_ms, b_by = timing[key]
@@ -1601,10 +1844,11 @@ def main() -> int:
                       "library_ms": None})
     emit({"kernels": table})
     print(smi, flush=True)
-    # the port runs on one device (its CLI caps -d at 1)
+    # the smoke needs one card (phase 9 shards over cuda:0 and, where
+    # there are more, over every card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": 1}})
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -228,6 +228,51 @@ def test_device_log(tmp_path):
     assert res.n_fallback == 0
 
 
+def test_device_log_lists_each_device(tmp_path):
+    """A device list: one line a device, as aim_tpu/api.py:833-846 writes
+    one a mesh device."""
+    cfg = derive_config("wfa", 100, 0.01, backtrace=True, adaptive=True)
+    path = tmp_path / "dev.log"
+    tapi.align_file(SAMPLE, str(tmp_path / "o"), 50, cfg,
+                    device=["cpu"] * 3, verbose=False, device_log=str(path))
+    lines = path.read_text().splitlines()
+    assert len(lines) == 3 and len(set(lines)) == 1
+    assert lines[0].startswith("CPU: cpu | algo=wfa max_score=5")
+    assert "pairs=50" in lines[0] and "fallback=0" in lines[0]
+
+
+@pytest.mark.parametrize("planes", [None, ""], ids=["retry", "fallback"])
+def test_align_file_prints_retry_and_fallback(tmp_path, monkeypatch, capsys,
+                                              planes):
+    """The stdout lines of aim_tpu/api.py:902-905, after the phase lines,
+    each only when its count is nonzero: K2 flags most pairs at 10 %
+    errors, the streamed tier's two planes certify some, the oracle takes
+    the rest; with the ladder off (AIM_TPU_RETRY_PLANES="") the oracle
+    takes every flagged pair."""
+    from aim_tpu_torch import datagen
+    if planes is not None:
+        monkeypatch.setenv("AIM_TPU_RETRY_PLANES", planes)
+    n = 256
+    src = str(tmp_path / "pairs")
+    datagen.write_pair_file(src, n, 100, 0.1, seed=3)
+    cfg = _cfg(["nw", "-i", src, "-o", "unused", "-l", "100", "-e", "0.01",
+                "-n", str(n), "-b"])
+    got, ref = str(tmp_path / "port"), str(tmp_path / "oracle")
+    res = tapi.align_file(src, got, n, cfg, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[:5] == [lines[0]] + [f"{k}: {v * 1e3:f} ms" for k, v in (
+        ("CPU-GPU", res.t_load), ("GPU Kernel", res.t_kernel),
+        ("GPU-CPU", res.t_retrieve))] + [lines[4]]
+    assert lines[4].startswith("pairs/s (device phases)")
+    counts = [f"wide-band device retry pairs: {res.n_retry}"] * bool(
+        res.n_retry) + [f"host-oracle fallback pairs: {res.n_fallback}"]
+    assert lines[5:] == counts
+    assert res.n_fallback > 0 and (res.n_retry > 0) == (planes is None)
+    osc = _oracle_file(ref, cfg, n, src)
+    np.testing.assert_array_equal(res.scores, osc)
+    assert open(got, "rb").read() == open(ref, "rb").read()
+
+
 def test_cli_requires_cuda(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "o"
@@ -350,6 +395,10 @@ def test_port_has_no_jax_imports_ast():
     files = PORT_FILES + [os.path.join(REPO, f) for f in (
         "chip_smoke.py", "tests/test_torch_gpu.py", "tests/torch_cases.py")]
     assert len(files) >= 16
+    for sub in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/runner.py", "tools/dryrun_multichip.py",
+                "tools/scaling.py"):
+        assert os.path.join(REPO, "aim_tpu_torch", sub) in files, sub
     for path in files:
         for mod in _imports(path):
             assert not _forbidden(mod), (path, mod)
@@ -364,7 +413,10 @@ def test_port_import_loads_no_jax():
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
         .removesuffix(".__init__") for p in PORT_FILES)
     assert {"aim_tpu_torch.ops.nwswg_long", "aim_tpu_torch.ops.probes",
-            "aim_tpu_torch.tools.fuzz_kernels"} <= set(mods)
+            "aim_tpu_torch.tools.fuzz_kernels", "aim_tpu_torch.parallel",
+            "aim_tpu_torch.parallel.mesh", "aim_tpu_torch.parallel.runner",
+            "aim_tpu_torch.tools.dryrun_multichip",
+            "aim_tpu_torch.tools.scaling"} <= set(mods)
     code = ("import sys; pre = [m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'aim_tpu', 'tools')]\n"
             f"import importlib\nfor m in {mods!r} + ['chip_smoke']:\n"

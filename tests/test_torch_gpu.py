@@ -704,3 +704,34 @@ def test_cli_profile_and_energy_on_gpu(cuda_device, tmp_path, capsys):
     assert len(line) == 1
     if "not measured" not in line[0]:
         assert float(line[0].rsplit(":", 1)[1]) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo,mod", [("wfa", wfa2), ("nw", nw)],
+                         ids=["K1", "K2"])
+def test_cuda_sharded_align_equals_one_device(cuda_device, algo, mod):
+    """Two shards on one card (``[cuda:0] * 2``): the same scores and
+    CIGARs as one device; one launch a non-empty block."""
+    from aim_tpu_torch.config import derive_config
+    cfg = derive_config(algo, 100, 0.01, backtrace=True,
+                        adaptive=algo == "wfa").replace(batch_pairs=1024)
+    p, t, pl, tl = datagen.generate_pairs(2600, 100, 0.01,
+                                          read_size=cfg.read_size, seed=11)
+    res = {}
+    for shards in (1, 2):
+        mod.reset_launch_count()
+        res[shards] = tapi.align(p, t, pl, tl, cfg, [cuda_device] * shards)
+        # 2600 pairs in chunks of 1024: 3 chunks; two shards a chunk
+        # leave the tail's 552 pairs one block of 512 and one of 40
+        assert mod.launch_count == 3 * shards
+    for k in ("scores", "ops", "begin", "end"):
+        np.testing.assert_array_equal(getattr(res[2], k), getattr(res[1], k))
+    assert res[2].n_fallback == res[1].n_fallback
+
+
+@pytest.mark.gpu
+def test_cuda_missing_card_raises(cuda_device):
+    p, t, pl, tl = datagen_batch(8, seed=3)
+    with pytest.raises(RuntimeError):
+        tapi.align(p, t, pl, tl, MAIN, [cuda_device, torch.device(
+            "cuda", torch.cuda.device_count())])
