@@ -23,8 +23,8 @@ tiers: the dense NW, SWG and WFA tiers in plain PyTorch on the device
 The reference's two TPU probes (``tools/microbench_mosaic.py``) are CUDA
 probes (``ops/probes.py``, ``csrc/probes.cu``); the tools run as
 ``python -m aim_tpu_torch.tools.<name>`` (``fuzz_kernels``,
-``microbench``, ``dryrun_multichip``, ``scaling``; ``timing`` is their
-timing library).  Pairs shard over a list of devices (``api.align(...,
+``microbench``, ``dryrun_multichip``, ``scaling``, ``bench``; ``timing``
+is their timing library).  Pairs shard over a list of devices (``api.align(...,
 device=[...])``, the CLI's ``-d``) and over processes
 (``parallel.runner``), as the reference's ``parallel`` package shards
 them over its mesh and hosts.

@@ -482,24 +482,26 @@ def _retry_wide(tier, cfg: AlignConfig, cpats, ctxts, cplens, ctlens, sel,
     return sel[fb2]
 
 
-def _oracle_align(pats, txts, plens, tlens, cfg: AlignConfig):
+def _oracle_align(pats, txts, plens, tlens, cfg: AlignConfig,
+                  threads: int = 0):
     """The exact host path for flagged pairs (aim_tpu/api.py
-    ``_oracle_align``), on a pool sized from the host."""
+    ``_oracle_align``), on ``threads`` threads (0: a pool sized from the
+    host)."""
     if cfg.algo == ALGO_NW:
         return native.nw_align(pats, txts, plens, tlens,
                                mismatch=cfg.mismatch, gap_i=cfg.gap_i,
                                gap_d=cfg.gap_d, backtrace=cfg.backtrace,
-                               threads=0)
+                               threads=threads)
     if cfg.algo == ALGO_SWG:
         return native.swg_align(pats, txts, plens, tlens, match=cfg.match,
                                 mismatch=cfg.mismatch, gap_o=cfg.gap_o,
                                 gap_e=cfg.gap_e, max_score=cfg.max_score,
                                 cell_width=cfg.cell_width,
-                                backtrace=cfg.backtrace, threads=0)
+                                backtrace=cfg.backtrace, threads=threads)
     if cfg.algo == ALGO_GENASM:
         return native.genasm_align(pats, txts, plens, tlens,
                                    max_score=cfg.max_score,
-                                   backtrace=cfg.backtrace, threads=0)
+                                   backtrace=cfg.backtrace, threads=threads)
     raise ValueError(f"{cfg.algo}: no flagged pairs expected")
 
 

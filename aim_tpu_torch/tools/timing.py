@@ -69,17 +69,26 @@ def _check(best, min_anchor_s, what):
             "for host-side timings)")
 
 
-def best_of(thunk, repeats: int = 3, *, device=None,
-            min_anchor_s: float = 1e-3, warmup: bool = True) -> float:
-    """Best seconds of ``thunk()`` over ``repeats`` runs: CUDA events when
-    ``device`` is a CUDA device, else the host clock.  Host-only timings
-    may pass ``min_anchor_s=0`` to turn the anchor guard off."""
+def times_of(thunk, repeats: int = 3, *, device=None,
+             min_anchor_s: float = 1e-3, warmup: bool = True) -> list:
+    """Seconds of each of ``repeats`` runs of ``thunk()`` (after one
+    untimed run unless ``warmup`` is False): CUDA events when ``device`` is
+    a CUDA device, else the host clock.  The best of them is held to
+    ``min_anchor_s``; host-only timings may pass 0 to turn the guard
+    off."""
     clock = _Clock(device)
     if warmup:
         clock(thunk)
-    best = min(clock(thunk) for _ in range(repeats))
-    _check(best, min_anchor_s, "timing anchor")
-    return best
+    times = [clock(thunk) for _ in range(repeats)]
+    _check(min(times), min_anchor_s, "timing anchor")
+    return times
+
+
+def best_of(thunk, repeats: int = 3, *, device=None,
+            min_anchor_s: float = 1e-3, warmup: bool = True) -> float:
+    """Best seconds of ``thunk()`` over ``repeats`` runs (``times_of``)."""
+    return min(times_of(thunk, repeats, device=device,
+                        min_anchor_s=min_anchor_s, warmup=warmup))
 
 
 def marginal_us(timed, n_small: int, n_large: int) -> float:

@@ -92,8 +92,17 @@ before the last line:
               sample and the main input: the joined file `cmp`-equal, no
               part left; `tools.dryrun_multichip` over 4 shards.
 
+ 10. bench    `python -m aim_tpu_torch.tools.bench` at its defaults (1M
+              pairs, 420 s budget), the command users run, in a process of
+              its own: exit 0 and a complete line (no `degraded`, `error` or
+              `skipped`; every key of `bench.KEYS`; every rate and slope of
+              `bench.POSITIVE` above 0; the long-read slopes over whole
+              waves of K5 and K6; the card's name and power limit), its
+              oracle checks passed inside it; emitted with its wall time.
+
 `python3 chip_smoke.py --only multi` runs phases 1 and 9 alone (a host
-with several cards), making the inputs and one-device runs phase 9 needs.
+with several cards), making the inputs and one-device runs phase 9 needs;
+`--only bench` runs phases 1 and 10.
 
 The last two lines are the kernel table (time, plain time, the bound the
 card sets for the same work and what sets it, launches on the main path)
@@ -1789,17 +1798,63 @@ KERNELS = [("wfa2", "wfa", "aim_tpu_torch/csrc/wfa2.cu",
             "aim_tpu/ops/nwswg_pallas_long.py:585")]
 
 
+def phase_bench():
+    """`python -m aim_tpu_torch.tools.bench` at its defaults in a process
+    of its own (this one keeps its cache of device memory out of the
+    bench's memory caps): exit 0 and a complete line, checked here; the
+    bench checks the port's scores against the oracles itself."""
+    from aim_tpu_torch.ops import nwswg_long, wfa_long
+    from aim_tpu_torch.tools import bench
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "aim_tpu_torch.tools.bench"],
+                       cwd=REPO, capture_output=True, text=True,
+                       timeout=bench.MEASURE_BUDGET + 120)
+    wall = time.perf_counter() - t0
+    sys.stderr.write(r.stderr)
+    lines = [l for l in r.stdout.splitlines() if l.startswith("{")]
+    if r.returncode != 0 or not lines:
+        fail(f"bench exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+             f"{r.stderr[-4000:]}")
+    line = json.loads(lines[-1])
+    bad = [k for k in ("degraded", "error", "skipped") if k in line]
+    missing = [k for k in bench.KEYS if k not in line]
+    if bad or missing:
+        fail(f"bench line incomplete: has {bad}, lacks {missing}: {line}")
+    nonpos = [k for k in bench.POSITIVE if not line[k] > 0]
+    if nonpos:
+        fail(f"bench: rates or slopes not above 0: {nonpos}: {line}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, info in (
+            ("longread_10kbp_slope_pairs", wfa_long.kernel_info(
+                bench.stage_config("K5"), packed=True)),
+            ("nw_long_4kbp_slope_pairs", nwswg_long.kernel_info(
+                bench.stage_config("K6"), 1))):
+        wave = bench.slope_sizes(info, sms, 1 << 40)[0]
+        small, large = line[key]
+        if small != wave or large % wave or large < 2 * wave:
+            fail(f"bench: {key} {line[key]} is not 1 and 2-4 waves of "
+                 f"{wave} pairs")
+    if line["gpu"] != torch.cuda.get_device_name(0) or \
+            not line["power_limit_w"] > 0:
+        fail(f"bench: card {line['gpu']!r}, {line['power_limit_w']} W")
+    emit({"phase": "bench", "wall_s": wall, **line})
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "multi"]):
-        print("usage: chip_smoke.py [--only multi]", file=sys.stderr)
+    if argv not in ([], ["--only", "multi"], ["--only", "bench"]):
+        print("usage: chip_smoke.py [--only multi|bench]", file=sys.stderr)
         return 2
     smi = phase_device()
     if argv:
         # phase 9 alone (a host with several cards): it makes the inputs
-        # and one-device runs it needs
-        with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
-            phase_multi(smi, tmp, {})
+        # and one-device runs it needs; or phase 10 alone
+        if argv[1] == "multi":
+            with tempfile.TemporaryDirectory(prefix="aim_chip_smoke_") as tmp:
+                phase_multi(smi, tmp, {})
+        else:
+            phase_bench()
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -1818,6 +1873,7 @@ def main(argv=None) -> int:
         phase_fuzz()
         phase_tools(smi, tmp)
         phase_multi(smi, tmp, files)
+    phase_bench()
     table = []
     for name, key, src, replaces in KERNELS:
         k_ms, p_ms, err, b_ms, b_by = timing[key]

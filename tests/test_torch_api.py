@@ -397,7 +397,7 @@ def test_port_has_no_jax_imports_ast():
     assert len(files) >= 16
     for sub in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/runner.py", "tools/dryrun_multichip.py",
-                "tools/scaling.py"):
+                "tools/scaling.py", "tools/bench.py"):
         assert os.path.join(REPO, "aim_tpu_torch", sub) in files, sub
     for path in files:
         for mod in _imports(path):
@@ -416,7 +416,8 @@ def test_port_import_loads_no_jax():
             "aim_tpu_torch.tools.fuzz_kernels", "aim_tpu_torch.parallel",
             "aim_tpu_torch.parallel.mesh", "aim_tpu_torch.parallel.runner",
             "aim_tpu_torch.tools.dryrun_multichip",
-            "aim_tpu_torch.tools.scaling"} <= set(mods)
+            "aim_tpu_torch.tools.scaling",
+            "aim_tpu_torch.tools.bench"} <= set(mods)
     code = ("import sys; pre = [m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'aim_tpu', 'tools')]\n"
             f"import importlib\nfor m in {mods!r} + ['chip_smoke']:\n"

@@ -34,6 +34,16 @@ def test_best_of_warms_up_then_repeats():
     assert len(calls) == 3
 
 
+def test_times_of_lists_each_run():
+    calls = []
+    ts = T.times_of(lambda: calls.append(1) or time.sleep(0.002), repeats=3,
+                    min_anchor_s=0)
+    assert len(calls) == 4 and len(ts) == 3
+    assert all(0.001 < t < 0.5 for t in ts)
+    with pytest.raises(T.SuspectTimingError):
+        T.times_of(lambda: None, repeats=2, warmup=False)
+
+
 def test_best_of_times_cpu_tensors_on_the_host_clock():
     x = torch.arange(256, dtype=torch.int32)
     t = T.best_of(lambda: torch.cumsum(x, 0), repeats=2,
