@@ -12,23 +12,27 @@ list shards each chunk into one contiguous block an entry, as
 ``aim_tpu``'s ``shard_map`` over its pair mesh does (``parallel.mesh``).
 GenASM configs no kernel admits run on the host tier: the oracle is their
 compute path.  The host runtime (parser, record
-decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``;
-``align_file`` can trace the align span (``profile_dir``) and measure its
-energy (``energy``: the GPU's NVML counter, the host's RAPL counters).
+decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``.
+Each host stage of a call runs under ``aim_tpu_torch.spans``: the call's
+record of stage seconds and byte counters comes back on the result, and
+under a torch profiler each stage is a ``record_function`` range.
+``align_file`` can trace the whole call (``profile_dir``) and measure the
+align span's energy (``energy``: the GPU's NVML counter, the host's RAPL
+counters).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from aim_tpu_torch import energy as _energy
-from aim_tpu_torch import native
+from aim_tpu_torch import native, spans
 from aim_tpu_torch.config import ALGO_GENASM, ALGO_NW, ALGO_SWG, ALGO_WFA, \
     AlignConfig
 from aim_tpu_torch.ops import kernels
@@ -45,7 +49,8 @@ class AlignResult:
     ops: np.ndarray | None = None      # [n, 2R] uint8 (backtrace only)
     begin: np.ndarray | None = None    # [n] int32
     end: np.ndarray | None = None      # [n] int32
-    # device phase timings (seconds): upload, kernel, download
+    # device phase timings (seconds), from the call's stages: upload and
+    # sort, kernel, retrieve
     t_load: float = 0.0
     t_kernel: float = 0.0
     t_retrieve: float = 0.0
@@ -61,6 +66,8 @@ class AlignResult:
     # package + DRAM counters
     gpu_energy_j: float | None = None
     energy_measured_j: float | None = None
+    # the call's record: stage seconds and counters (aim_tpu_torch.spans)
+    spans: spans.Record | None = None
 
 
 def _device_list(device) -> list[torch.device]:
@@ -201,37 +208,68 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     128 pairs) run in estimated-difficulty order; AIM_TPU_SORT=0 turns
     that off, =1 on for any read size.  Over several devices the sorted
     order is dealt round-robin across each chunk's blocks
-    (``_deal_order``).  The output order is the input's; the sort's host
-    time counts in ``t_load``."""
-    cfg.validate()
-    devs = _device_list(device)
-    plens = np.ascontiguousarray(plens, np.int32)
-    tlens = np.ascontiguousarray(tlens, np.int32)
+    (``_deal_order``).  The output order is the input's.
+
+    The call's host stages are timed by ``aim_tpu_torch.spans``; the
+    record is ``res.spans``, and ``t_load`` (upload + sort), ``t_kernel``
+    and ``t_retrieve`` are its stages."""
+    with spans.call("align", pats.shape[0]) as rec:
+        cfg.validate()
+        devs = _device_list(device)
+        plens = np.ascontiguousarray(plens, np.int32)
+        tlens = np.ascontiguousarray(tlens, np.int32)
+        n = pats.shape[0]
+        if n and max(int(plens.max()), int(tlens.max())) > cfg.read_size:
+            raise ValueError(
+                f"sequence longer than read_size={cfg.read_size}")
+        sort_env = os.environ.get("AIM_TPU_SORT", "")
+        sort_on = sort_env == "1" if sort_env in ("0", "1") \
+            else cfg.read_size >= 1024
+        if sort_on and n > 128:
+            res = _sorted_align(pats, txts, plens, tlens, cfg, devs)
+        else:
+            res = _align_impl(pats, txts, plens, tlens, cfg, devs)
+        sec = rec.seconds
+        res.t_load = sec["upload"] + sec["sort"]
+        res.t_kernel = sec["kernel"]
+        res.t_retrieve = sec["retrieve"]
+        res.spans = rec
+    return res
+
+
+def _sorted_align(pats, txts, plens, tlens, cfg: AlignConfig,
+                  devs: list[torch.device]) -> AlignResult:
+    """``_align_impl`` on the pairs in difficulty order, the outputs back
+    in input order."""
     n = pats.shape[0]
-    if n and max(int(plens.max()), int(tlens.max())) > cfg.read_size:
-        raise ValueError(f"sequence longer than read_size={cfg.read_size}")
-    sort_env = os.environ.get("AIM_TPU_SORT", "")
-    sort_on = sort_env == "1" if sort_env in ("0", "1") \
-        else cfg.read_size >= 1024
-    if not (sort_on and n > 128):
-        return _align_impl(pats, txts, plens, tlens, cfg, devs)
-    t0 = time.perf_counter()
-    order = _difficulty_order(pats, txts, plens, tlens)
+    with spans.span("sort"):
+        order = _difficulty_order(pats, txts, plens, tlens)
     if len(devs) > 1:
-        order = _deal_order(order, n, _plan_bs(cfg, n, devs), len(devs))
-    t_sort = time.perf_counter() - t0
-    res = _align_impl(pats[order], txts[order], plens[order], tlens[order],
-                      cfg, devs)
-    inv = np.empty_like(order)
-    inv[order] = np.arange(n)
-    return AlignResult(
-        res.scores[inv],
-        res.ops[inv] if res.ops is not None else None,
-        res.begin[inv] if res.begin is not None else None,
-        res.end[inv] if res.end is not None else None,
-        t_load=res.t_load + t_sort, t_kernel=res.t_kernel,
-        t_retrieve=res.t_retrieve, n_fallback=res.n_fallback,
-        n_retry=res.n_retry, retry_by_planes=res.retry_by_planes)
+        with spans.span("plan"):
+            bs = _plan_bs(cfg, n, devs)
+        with spans.span("sort"):
+            order = _deal_order(order, n, bs, len(devs))
+    with spans.span("permute"):
+        args = pats[order], txts[order], plens[order], tlens[order]
+    res = _align_impl(*args, cfg, devs)
+    del args
+    with spans.span("permute"):
+        inv = np.empty_like(order)
+        inv[order] = np.arange(n)
+        return AlignResult(
+            res.scores[inv],
+            res.ops[inv] if res.ops is not None else None,
+            res.begin[inv] if res.begin is not None else None,
+            res.end[inv] if res.end is not None else None,
+            n_fallback=res.n_fallback, n_retry=res.n_retry,
+            retry_by_planes=res.retry_by_planes)
+
+
+def _nbytes(out) -> int:
+    """Bytes of a block's host records (an array, or a dict of them)."""
+    if isinstance(out, dict):
+        return sum(v.nbytes for v in out.values())
+    return out.nbytes
 
 
 def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
@@ -240,11 +278,12 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
     R = cfg.read_size
     max_ops = 2 * R
 
-    scores = np.zeros(n, np.int32)
-    ops = np.zeros((n, max_ops), np.uint8) if cfg.backtrace else None
-    begin = np.zeros(n, np.int32) if cfg.backtrace else None
-    end = np.zeros(n, np.int32) if cfg.backtrace else None
-    res = AlignResult(scores, ops, begin, end)
+    with spans.span("plan"):
+        scores = np.zeros(n, np.int32)
+        ops = np.zeros((n, max_ops), np.uint8) if cfg.backtrace else None
+        begin = np.zeros(n, np.int32) if cfg.backtrace else None
+        end = np.zeros(n, np.int32) if cfg.backtrace else None
+        res = AlignResult(scores, ops, begin, end)
     if n == 0:
         return res
 
@@ -252,111 +291,120 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
     # the tier for it (aim_tpu/api.py:555-570): K1 and K2/K3 compare raw
     # bytes too, K5 takes its byte layout, K4 needs the packed codes, the
     # dense tiers take raw bytes.
-    up_pats, up_txts, packed = pack_seqs(pats, txts, plens, tlens, R)
-    fwd = kernels.forward_fn(cfg, packed_ok=packed)
+    with spans.span("pack"):
+        up_pats, up_txts, packed = pack_seqs(pats, txts, plens, tlens, R)
+        fwd = kernels.forward_fn(cfg, packed_ok=packed)
     if fwd.records == kernels.HOST:
         # the host tier (aim_tpu/api.py:572-581): the exact multi-threaded
         # oracle is the compute path
-        t0 = time.perf_counter()
-        osc, oops, ob, oe = _oracle_align(pats, txts, plens, tlens, cfg)
-        res.t_kernel = time.perf_counter() - t0
-        scores[:] = osc
-        if cfg.backtrace:
-            ops[:], begin[:], end[:] = oops, ob, oe
+        with spans.span("kernel"):
+            osc, oops, ob, oe = _oracle_align(pats, txts, plens, tlens, cfg)
+            scores[:] = osc
+            if cfg.backtrace:
+                ops[:], begin[:], end[:] = oops, ob, oe
         return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
-    bs = _plan_bs(cfg, n, devices, packed_ok=packed)
+    with spans.span("plan"):
+        bs = _plan_bs(cfg, n, devices, packed_ok=packed)
     if fwd.records in kernels.DENSE_RECORDS:
         up_pats, up_txts, packed = pats, txts, False
     starts = list(range(0, n, bs))
+    spans.count("chunks", len(starts))
     # a chunk's blocks as [(device, b0, b1, host records)], in pair order
     records = []
     for w0 in range(0, len(starts), WAVE):
         wave = starts[w0:w0 + WAVE]
-        t0 = time.perf_counter()
-        uploads = [[(dev, b0, b1,
-                     to_device_batch(up_pats[b0:b1], up_txts[b0:b1],
-                                     plens[b0:b1], tlens[b0:b1], dev))
-                    for dev, b0, b1 in _blocks(lo, min(lo + bs, n), bs,
-                                               devices)]
-                   for lo in wave]
-        _sync(devices)
-        res.t_load += time.perf_counter() - t0
+        with spans.span("upload"):
+            uploads = [[(dev, b0, b1,
+                         to_device_batch(up_pats[b0:b1], up_txts[b0:b1],
+                                         plens[b0:b1], tlens[b0:b1], dev))
+                        for dev, b0, b1 in _blocks(lo, min(lo + bs, n), bs,
+                                                   devices)]
+                       for lo in wave]
+            _sync(devices)
+            spans.count("h2d_bytes", sum(t.nbytes for blocks in uploads
+                                         for *_, args in blocks
+                                         for t in args))
 
         outs = []
         for blocks in uploads:
-            t1 = time.perf_counter()
-            outs.append([(dev, b0, b1, fwd(*args, cfg=cfg, packed=packed))
-                         for dev, b0, b1, args in blocks])
-            _sync(devices)
-            res.t_kernel += time.perf_counter() - t1
+            with spans.span("kernel"):
+                outs.append([(dev, b0, b1, fwd(*args, cfg=cfg,
+                                               packed=packed))
+                             for dev, b0, b1, args in blocks])
+                _sync(devices)
         del uploads
 
-        t2 = time.perf_counter()
-        records.extend(
-            [(dev, b0, b1, {k: v.cpu().numpy() for k, v in o.items()}
-              if isinstance(o, dict) else o.cpu().numpy())
-             for dev, b0, b1, o in blocks] for blocks in outs)
-        res.t_retrieve += time.perf_counter() - t2
-        del outs
+        with spans.span("retrieve"):
+            got = [[(dev, b0, b1, {k: v.cpu().numpy() for k, v in o.items()}
+                     if isinstance(o, dict) else o.cpu().numpy())
+                    for dev, b0, b1, o in blocks] for blocks in outs]
+            spans.count("d2h_bytes", sum(_nbytes(r) for blocks in got
+                                         for *_, r in blocks))
+        records.extend(got)
+        del outs, got
 
     smax = cfg.max_score
     retry_stages = _retry_stages(fwd)
     for lo, blocks in zip(starts, records):
-        chunk = slice(lo, min(lo + bs, n))
-        rec = _gather([r for _, _, _, r in blocks])
-        flagged = None
-        if fwd.records in kernels.DENSE_RECORDS:
-            _decode_dense(fwd.records, rec, cfg, chunk, pats, txts, plens,
-                          tlens, scores, ops, begin, end)
-            if "needs_fallback" in rec:
-                flagged = np.nonzero(rec["needs_fallback"])[0]
-        elif fwd.records in (kernels.STEP_RECORDS, kernels.GENASM_RECORDS):
-            # WFA: row smax+3 holds the score; GenASM: the same grammar
-            # with one level row a text position, the score in row R+3
-            # (no fallback conditions)
-            levels = smax if fwd.records == kernels.STEP_RECORDS else R
-            scores[chunk] = rec[:, levels + 3]
-            if cfg.backtrace:
-                _, o, b, e = native.wfa_steps_to_ops(
-                    rec, plens[chunk], tlens[chunk], max_score=levels,
-                    max_ops=max_ops)
-                ops[chunk], begin[chunk], end[chunk] = o, b, e
-        else:
-            # packed runs: lane 0 = cursor | flags << 8 (bit 8 =
-            # needs_fallback), lane 1 = score, then the runs
-            lane0 = rec[:, 0].astype(np.int32)
-            scores[chunk] = rec[:, 1]
-            flagged = np.nonzero((lane0 >> 8) & 1)[0]
-            if cfg.backtrace:
-                o, b, e = native.wfa_runs_to_ops(
-                    rec, scores[chunk], plens[chunk], tlens[chunk],
-                    max_score=1 << 30, max_ops=max_ops)
-                ops[chunk], begin[chunk], end[chunk] = o, b, e
+        with spans.span("decode"):
+            chunk = slice(lo, min(lo + bs, n))
+            rec = _gather([r for _, _, _, r in blocks])
+            flagged = None
+            if fwd.records in kernels.DENSE_RECORDS:
+                _decode_dense(fwd.records, rec, cfg, chunk, pats, txts,
+                              plens, tlens, scores, ops, begin, end)
+                if "needs_fallback" in rec:
+                    flagged = np.nonzero(rec["needs_fallback"])[0]
+            elif fwd.records in (kernels.STEP_RECORDS,
+                                 kernels.GENASM_RECORDS):
+                # WFA: row smax+3 holds the score; GenASM: the same
+                # grammar with one level row a text position, the score in
+                # row R+3 (no fallback conditions)
+                levels = smax if fwd.records == kernels.STEP_RECORDS else R
+                scores[chunk] = rec[:, levels + 3]
+                if cfg.backtrace:
+                    _, o, b, e = native.wfa_steps_to_ops(
+                        rec, plens[chunk], tlens[chunk], max_score=levels,
+                        max_ops=max_ops)
+                    ops[chunk], begin[chunk], end[chunk] = o, b, e
+            else:
+                # packed runs: lane 0 = cursor | flags << 8 (bit 8 =
+                # needs_fallback), lane 1 = score, then the runs
+                lane0 = rec[:, 0].astype(np.int32)
+                scores[chunk] = rec[:, 1]
+                flagged = np.nonzero((lane0 >> 8) & 1)[0]
+                if cfg.backtrace:
+                    o, b, e = native.wfa_runs_to_ops(
+                        rec, scores[chunk], plens[chunk], tlens[chunk],
+                        max_score=1 << 30, max_ops=max_ops)
+                    ops[chunk], begin[chunk], end[chunk] = o, b, e
         if flagged is None or not len(flagged):
             continue
         # flagged pairs: the wider bands of the ladder on the device of
         # their block, then the exact host oracle for what they still flag
-        left = []
-        for dev, b0, b1, _ in blocks:
-            sel = flagged[(flagged >= b0 - lo) & (flagged < b1 - lo)]
-            for p in retry_stages:
-                if not len(sel):
-                    break
-                sel = _retry_wide(fwd, cfg, pats[chunk], txts[chunk],
-                                  plens[chunk], tlens[chunk], sel, scores,
-                                  ops, begin, end, lo, max_ops, dev, res,
-                                  planes=p)
-            left.append(sel)
-        sel = np.concatenate(left)
+        with spans.span("retry"):
+            left = []
+            for dev, b0, b1, _ in blocks:
+                sel = flagged[(flagged >= b0 - lo) & (flagged < b1 - lo)]
+                for p in retry_stages:
+                    if not len(sel):
+                        break
+                    sel = _retry_wide(fwd, cfg, pats[chunk], txts[chunk],
+                                      plens[chunk], tlens[chunk], sel,
+                                      scores, ops, begin, end, lo, max_ops,
+                                      dev, res, planes=p)
+                left.append(sel)
+            sel = np.concatenate(left)
         if not len(sel):
             continue
-        sel = lo + sel
-        res.n_fallback += len(sel)
-        osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel], plens[sel],
-                                          tlens[sel], cfg)
-        scores[sel] = osc
-        if cfg.backtrace:
-            ops[sel], begin[sel], end[sel] = oops, ob, oe
+        with spans.span("fallback"):
+            sel = lo + sel
+            res.n_fallback += len(sel)
+            osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel],
+                                              plens[sel], tlens[sel], cfg)
+            scores[sel] = osc
+            if cfg.backtrace:
+                ops[sel], begin[sel], end[sel] = oops, ob, oe
     return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
 
 
@@ -514,17 +562,18 @@ def _overflow_bt_pass(pats, txts, plens, tlens, cfg: AlignConfig,
     if not (cfg.algo == ALGO_WFA and cfg.backtrace
             and cfg.overflow_backtrace):
         return res
-    sel = np.nonzero(res.scores > cfg.max_score)[0]
-    if not len(sel):
-        return res
-    _, oops, ob, oe = native.wfa_align(
-        pats[sel], txts[sel], plens[sel], tlens[sel],
-        mismatch=cfg.mismatch, gap_o=cfg.gap_o, gap_e=cfg.gap_e,
-        max_score=cfg.max_score, adaptive=cfg.adaptive, backtrace=True,
-        threads=0, overflow_backtrace=True)
-    res.ops[sel] = oops
-    res.begin[sel] = ob
-    res.end[sel] = oe
+    with spans.span("fallback"):
+        sel = np.nonzero(res.scores > cfg.max_score)[0]
+        if not len(sel):
+            return res
+        _, oops, ob, oe = native.wfa_align(
+            pats[sel], txts[sel], plens[sel], tlens[sel],
+            mismatch=cfg.mismatch, gap_o=cfg.gap_o, gap_e=cfg.gap_e,
+            max_score=cfg.max_score, adaptive=cfg.adaptive, backtrace=True,
+            threads=0, overflow_backtrace=True)
+        res.ops[sel] = oops
+        res.begin[sel] = ob
+        res.end[sel] = oe
     return res
 
 
@@ -537,9 +586,16 @@ def device_name(device: torch.device) -> str:
 def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
                      device):
     """The dpu-out analogue (aim_tpu/api.py:833-846): one line a device
-    of ``device`` (one device or a list) with the run."""
+    of ``device`` (one device or a list) with the run, then the seconds of
+    the call's other stages and its counters (``res.spans``; ``kernel_s``
+    and ``retrieve_s`` are those stages already)."""
     stages = ",".join(f"{p}:{k}" for p, k in
                       sorted(res.retry_by_planes.items())) or "-"
+    rec = res.spans
+    tail = "" if rec is None else "".join(
+        [f" {s}_s={v:.6f}" for s, v in rec.seconds.items()
+         if s not in ("kernel", "retrieve")]
+        + [f" {c}={v}" for c, v in rec.counts.items()])
     with open(path, "w") as f:
         for dev in _device_list(device):
             label = f"GPU {dev.index or 0}" if dev.type == "cuda" else "CPU"
@@ -550,23 +606,27 @@ def write_device_log(path: str, cfg: AlignConfig, res: AlignResult, n: int,
                     f"load_s={res.t_load:.6f} kernel_s={res.t_kernel:.6f} "
                     f"retrieve_s={res.t_retrieve:.6f} "
                     f"fallback={res.n_fallback} retry={res.n_retry} "
-                    f"retry_by_planes={stages}\n")
+                    f"retry_by_planes={stages}{tail}\n")
 
 
-def _profiled_align(profile_dir, pats, txts, plens, tlens, cfg, devices):
-    """``align`` under torch.profiler (CPU activities, and CUDA ones when
+@contextlib.contextmanager
+def _profiled(profile_dir, devices):
+    """The block under torch.profiler (CPU activities, and CUDA ones when
     a device of the list is CUDA), its trace written to
-    ``profile_dir/trace.json`` as a chrome trace."""
+    ``profile_dir/trace.json`` as a chrome trace; without a
+    ``profile_dir``, the block alone."""
+    if not profile_dir:
+        yield
+        return
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if any(d.type == "cuda" for d in devices):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        res = align(pats, txts, plens, tlens, cfg, devices)
+        yield
         _sync(devices)
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    return res
 
 
 def align_file(input_path: str, output_path: str, n_reads: int,
@@ -577,32 +637,34 @@ def align_file(input_path: str, output_path: str, n_reads: int,
     n_reads is the number of PAIRS requested; fewer are aligned if the
     file is shorter.  ``device``: one device or a list, as in ``align``.
 
-    profile_dir: a torch.profiler trace of the align span is written there
-    (``trace.json``, chrome format).  energy: the GPU's and the host's
-    energy over the align span are measured and printed (NVML's
-    total-energy counter, RAPL); what cannot be read is reported as not
-    measured, never estimated."""
+    profile_dir: a torch.profiler trace of the whole call, parse to emit,
+    is written there (``trace.json``, chrome format), each stage of
+    ``aim_tpu_torch.spans`` an ``aim.<stage>`` range inside ``aim.call``.
+    energy: the GPU's and the host's energy over the align span are
+    measured and printed (NVML's total-energy counter, RAPL); what cannot
+    be read is reported as not measured, never estimated.  device_log: the
+    file gets one line a device, with the call's stage seconds and
+    counters."""
     devs = _device_list(device)
-    t0 = time.perf_counter()
-    pats, txts, plens, tlens = native.parse_pairs(input_path, n_reads,
-                                                  cfg.read_size, threads=0)
-    t_parse = time.perf_counter() - t0
-    meter = _energy.Meter(devs) if energy else None
-    if profile_dir:
-        res = _profiled_align(profile_dir, pats, txts, plens, tlens, cfg,
-                              devs)
-    else:
+    with _profiled(profile_dir, devs), spans.call("align_file") as rec:
+        with spans.span("parse"):
+            pats, txts, plens, tlens = native.parse_pairs(
+                input_path, n_reads, cfg.read_size, threads=0)
+        rec.pairs = len(plens)
+        meter = _energy.Meter(devs) if energy else None
         res = align(pats, txts, plens, tlens, cfg, devs)
-    if meter is not None:
-        _sync(devs)
-        res.gpu_energy_j, res.energy_measured_j = meter.stop()
-    n = len(res.scores)
-    native.emit_output(output_path, np.arange(n, dtype=np.int32), res.scores,
-                       res.ops, res.begin, res.end, cfg.backtrace)
+        if meter is not None:
+            _sync(devs)
+            res.gpu_energy_j, res.energy_measured_j = meter.stop()
+        n = len(res.scores)
+        with spans.span("emit"):
+            native.emit_output(output_path, np.arange(n, dtype=np.int32),
+                               res.scores, res.ops, res.begin, res.end,
+                               cfg.backtrace)
     if device_log:
         write_device_log(device_log, cfg, res, n, devs)
     if verbose:
-        print(f"Parsed {n} pairs in {t_parse * 1e3:.3f} ms")
+        print(f"Parsed {n} pairs in {rec.seconds['parse'] * 1e3:.3f} ms")
         print(f"CPU-GPU: {res.t_load * 1e3:f} ms")
         print(f"GPU Kernel: {res.t_kernel * 1e3:f} ms")
         print(f"GPU-CPU: {res.t_retrieve * 1e3:f} ms")

@@ -37,7 +37,9 @@ puts every config there:
         -b -r --backend xla
 
 ``--profile DIR`` writes a torch.profiler chrome trace (CPU and CUDA
-activities) of the align span to DIR/trace.json; ``--energy`` prints the
+activities) of the whole call, parse to emit, to DIR/trace.json, each host
+stage an ``aim.<stage>`` range; ``--device-log`` adds each stage's seconds
+and the chunk and byte counters to its line; ``--energy`` prints the
 GPU energy of the align span from NVML's total-energy counter, and the
 host's from RAPL where the host has it.  The run shards its pairs over
 every CUDA device of the host, as ``aim_tpu.cli`` does over its devices;
@@ -109,7 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "dpu-out file; disabled when empty)")
         p.add_argument("--profile", type=str, default="",
                        help="write a torch.profiler chrome trace (CPU and "
-                            "CUDA activities) of the align span to "
+                            "CUDA activities) of the whole call, each host "
+                            "stage an aim.<stage> range, to "
                             "DIR/trace.json")
         p.add_argument("-q", "--quiet", action="store_true")
 
@@ -191,6 +194,15 @@ def config_from_args(args) -> "AlignConfig":
 
 
 def main(argv=None) -> int:
+    """One run of the CLI: one call record of ``aim_tpu_torch.spans``,
+    from the arguments to the result's release (pairs 0 where it aligned
+    nothing)."""
+    from aim_tpu_torch import spans
+    with spans.call("cli"):
+        return _main(argv)
+
+
+def _main(argv) -> int:
     ap = build_parser()
     ap.prog = "aim-tpu-torch"
     args = ap.parse_args(argv)

@@ -688,8 +688,10 @@ def test_cli_dense_on_gpu(cuda_device, tmp_path, flags, dense):
 
 @pytest.mark.gpu
 def test_cli_profile_and_energy_on_gpu(cuda_device, tmp_path, capsys):
-    """--profile leaves a chrome trace with K1's kernel events; --energy
-    prints the GPU energy NVML measured (or says it was not measured)."""
+    """--profile leaves a chrome trace of the whole call with K1's kernel
+    events, each launched inside an ``aim.kernel`` range, and ``aim.parse``
+    and ``aim.emit`` inside ``aim.call``; --energy prints the GPU energy
+    NVML measured (or says it was not measured)."""
     import json
     prof = tmp_path / "prof"
     argv = ["wfa", "-i", SAMPLE, "-l", "100", "-e", "0.01", "-n",
@@ -697,8 +699,27 @@ def test_cli_profile_and_energy_on_gpu(cuda_device, tmp_path, capsys):
             "--profile", str(prof), "--energy"]
     assert tcli.main(argv) == 0
     events = json.load(open(prof / "trace.json"))["traceEvents"]
-    assert any(e.get("cat") == "kernel" and "wfa2" in e.get("name", "")
-               for e in events)
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "wfa2" in e.get("name", "")]
+    assert kernels
+
+    def ranges(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("name") == name]
+
+    # a kernel's launch (the host event of its correlation id) lies in
+    # an aim.kernel range
+    launch = {(e.get("args") or {}).get("correlation"): e["ts"]
+              for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    inside = ranges("aim.kernel")
+    for k in kernels:
+        ts = launch[k["args"]["correlation"]]
+        assert any(a <= ts <= b for a, b in inside)
+    (c0, c1), = ranges("aim.call")
+    for name in ("aim.parse", "aim.emit"):
+        (a, b), = ranges(name)
+        assert c0 <= a and b <= c1
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("GPU Energy")]
     assert len(line) == 1
