@@ -5,11 +5,13 @@ difficulty, pack the pairs, pick the tier for the batch's alphabet, upload
 each chunk, run the kernel (or the dense exact tier), pull the records,
 decode them by their grammar (WFA and GenASM step records, packed runs, or
 the dense tiers' direction codes and histories) into scores and CIGARs
-with the native decoders, re-run the pairs a tier flags on the wider bands
-of the retry ladder and then on the exact host oracle, emit the
-reference-format file.  ``device`` is one device or a list of them: a
-list shards each chunk into one contiguous block an entry, as
-``aim_tpu``'s ``shard_map`` over its pair mesh does (``parallel.mesh``).
+with the native decoders (step records and packed runs in one pass over
+the batch, on row ranges across the host's cores), re-run the pairs a
+tier flags on the wider bands of the retry ladder and then on the exact
+host oracle, emit the reference-format file.  ``device`` is one device
+or a list of them: a list shards each chunk into one contiguous block an
+entry, as ``aim_tpu``'s ``shard_map`` over its pair mesh does
+(``parallel.mesh``).
 GenASM configs no kernel admits run on the host tier: the oracle is their
 compute path.  The host runtime (parser, record
 decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``.
@@ -26,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,6 +44,11 @@ from aim_tpu_torch.ops.common import pack_seqs, round_up, to_device_batch
 
 WAVE = 8            # chunks uploaded together before their kernels run
 DEFAULT_BUDGET = 2 << 30
+# output bytes (rows of ops) a thread of the decode pass takes at least:
+# below twice this the pass runs on the calling thread.  On an H100's
+# 8-core host a pool thread costs ~1 ms to start, and a pass of 14 MiB
+# ran no faster on 2 to 4 threads than on one; 28 MiB and more did.
+DECODE_MIN_BYTES = 10 << 20
 
 
 @dataclass
@@ -343,41 +351,26 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         records.extend(got)
         del outs, got
 
-    smax = cfg.max_score
+    with spans.span("decode"):
+        # each chunk's records, gathered from its blocks, by first row
+        chunks = [(lo, _gather([r for *_, r in blocks]))
+                  for lo, blocks in zip(starts, records)]
+        if fwd.records in kernels.DENSE_RECORDS:
+            for lo, rec in chunks:
+                _decode_dense(fwd.records, rec, cfg,
+                              slice(lo, min(lo + bs, n)), pats, txts, plens,
+                              tlens, scores, ops, begin, end)
+            threads = int(cfg.backtrace)
+        else:
+            threads = _decode_pass(fwd.records, chunks, cfg, plens, tlens,
+                                   scores, ops, begin, end,
+                                   _decode_threads(n, max_ops))
+        flags = [_flagged(fwd.records, rec) for _, rec in chunks]
+    spans.count("decode_threads", threads)
+
     retry_stages = _retry_stages(fwd)
-    for lo, blocks in zip(starts, records):
-        with spans.span("decode"):
-            chunk = slice(lo, min(lo + bs, n))
-            rec = _gather([r for _, _, _, r in blocks])
-            flagged = None
-            if fwd.records in kernels.DENSE_RECORDS:
-                _decode_dense(fwd.records, rec, cfg, chunk, pats, txts,
-                              plens, tlens, scores, ops, begin, end)
-                if "needs_fallback" in rec:
-                    flagged = np.nonzero(rec["needs_fallback"])[0]
-            elif fwd.records in (kernels.STEP_RECORDS,
-                                 kernels.GENASM_RECORDS):
-                # WFA: row smax+3 holds the score; GenASM: the same
-                # grammar with one level row a text position, the score in
-                # row R+3 (no fallback conditions)
-                levels = smax if fwd.records == kernels.STEP_RECORDS else R
-                scores[chunk] = rec[:, levels + 3]
-                if cfg.backtrace:
-                    _, o, b, e = native.wfa_steps_to_ops(
-                        rec, plens[chunk], tlens[chunk], max_score=levels,
-                        max_ops=max_ops)
-                    ops[chunk], begin[chunk], end[chunk] = o, b, e
-            else:
-                # packed runs: lane 0 = cursor | flags << 8 (bit 8 =
-                # needs_fallback), lane 1 = score, then the runs
-                lane0 = rec[:, 0].astype(np.int32)
-                scores[chunk] = rec[:, 1]
-                flagged = np.nonzero((lane0 >> 8) & 1)[0]
-                if cfg.backtrace:
-                    o, b, e = native.wfa_runs_to_ops(
-                        rec, scores[chunk], plens[chunk], tlens[chunk],
-                        max_score=1 << 30, max_ops=max_ops)
-                    ops[chunk], begin[chunk], end[chunk] = o, b, e
+    for lo, blocks, flagged in zip(starts, records, flags):
+        chunk = slice(lo, min(lo + bs, n))
         if flagged is None or not len(flagged):
             continue
         # flagged pairs: the wider bands of the ladder on the device of
@@ -406,6 +399,84 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
             if cfg.backtrace:
                 ops[sel], begin[sel], end[sel] = oops, ob, oe
     return _overflow_bt_pass(pats, txts, plens, tlens, cfg, res)
+
+
+def _decode_threads(n: int, max_ops: int) -> int:
+    """Threads for a decode pass of ``n`` output rows of ``max_ops`` bytes:
+    one for each ``DECODE_MIN_BYTES``, at least one, at most parse's
+    min(cores, 16)."""
+    cores = min(os.cpu_count() or 1, 16)
+    return max(1, min(cores, n * max_ops // DECODE_MIN_BYTES))
+
+
+def _decode_pass(grammar, chunks, cfg: AlignConfig, plens, tlens, scores,
+                 ops, begin, end, threads: int) -> int:
+    """Scores and, with backtrace, CIGARs of the wave loop's step records
+    (WFA, GenASM) or packed runs (``chunks``: (first row, records) a
+    chunk), the whole batch in one pass: its rows split into up to
+    ``threads`` ranges, each range's records decoded by the native
+    expander straight into their rows of ``scores``/``ops``/``begin``/
+    ``end``, the ranges on a thread pool of the call (ctypes drops the
+    GIL) or, at one, on this thread.  Returns the threads that decoded
+    CIGARs: 0 without backtrace, where only scores are copied."""
+    if grammar == kernels.PACKED_RUNS:
+        col = 1
+    else:
+        # WFA: row smax+3 holds the score; GenASM: the same grammar with
+        # one level row a text position, the score in row R+3
+        levels = cfg.max_score if grammar == kernels.STEP_RECORDS \
+            else cfg.read_size
+        col = levels + 3
+    if not cfg.backtrace:
+        for lo, r in chunks:
+            scores[lo:lo + len(r)] = r[:, col]
+        return 0
+    max_ops = ops.shape[1]
+    # range t holds rows [t * step, (t + 1) * step), cut where chunks end
+    step = -(-len(scores) // threads)
+    ranges = [[] for _ in range(threads)]
+    for c0, r in chunks:
+        lo, c1 = c0, c0 + len(r)
+        while lo < c1:
+            hi = min(c1, (lo // step + 1) * step)
+            ranges[lo // step].append((lo, hi, r[lo - c0:hi - c0]))
+            lo = hi
+    ranges = [part for part in ranges if part]
+
+    def run(part):
+        for lo, hi, r in part:
+            if grammar == kernels.PACKED_RUNS:
+                scores[lo:hi] = r[:, col]
+                native.wfa_runs_to_ops(
+                    r, scores[lo:hi], plens[lo:hi], tlens[lo:hi],
+                    max_score=1 << 30, max_ops=max_ops,
+                    out=(ops[lo:hi], begin[lo:hi], end[lo:hi]))
+            else:
+                native.wfa_steps_to_ops(
+                    r, plens[lo:hi], tlens[lo:hi], max_score=levels,
+                    max_ops=max_ops,
+                    out=(scores[lo:hi], ops[lo:hi], begin[lo:hi],
+                         end[lo:hi]))
+
+    if len(ranges) == 1:
+        run(ranges[0])
+    else:
+        with ThreadPoolExecutor(len(ranges)) as ex:
+            list(ex.map(run, ranges))
+    return len(ranges)
+
+
+def _flagged(grammar, rec):
+    """The pairs of a chunk's records that its tier flags, as indices into
+    the chunk: the dense tiers' ``needs_fallback``; packed runs' lane 0 =
+    cursor | flags << 8, bit 8 = needs_fallback.  Step records (WFA,
+    GenASM) never flag: None."""
+    if grammar in kernels.DENSE_RECORDS:
+        return np.nonzero(rec["needs_fallback"])[0] \
+            if "needs_fallback" in rec else None
+    if grammar == kernels.PACKED_RUNS:
+        return np.nonzero((rec[:, 0] >> 8) & 1)[0]
+    return None
 
 
 def _decode_dense(grammar, rec, cfg: AlignConfig, chunk, pats, txts, plens,

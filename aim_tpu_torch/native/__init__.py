@@ -481,36 +481,53 @@ def pack_seqs(pats, txts, plens, tlens, rp):
     return out_p, out_t, True
 
 
-def wfa_runs_to_ops(runs, scores, plens, tlens, *, max_score, max_ops):
+def _decoded(out, n: int, max_ops: int, with_scores: bool):
+    """The record decoders' outputs: ([n] int32 scores,) [n, max_ops] uint8
+    ops, [n] int32 begin and end, fresh, or the caller's ``out`` checked
+    for shape, dtype and C order (a row block of a C-contiguous array is
+    one)."""
+    want = ([((n,), np.int32)] if with_scores else []) + [
+        ((n, max_ops), np.uint8), ((n,), np.int32), ((n,), np.int32)]
+    if out is None:
+        return tuple(np.zeros(shape, dtype) for shape, dtype in want)
+    if len(out) != len(want) or any(
+            a.shape != shape or a.dtype != dtype or not a.flags.c_contiguous
+            for a, (shape, dtype) in zip(out, want)):
+        raise ValueError(
+            f"out: need {len(want)} C-contiguous arrays of "
+            f"{[(shape, np.dtype(dtype).name) for shape, dtype in want]}")
+    return tuple(out)
+
+
+def wfa_runs_to_ops(runs, scores, plens, tlens, *, max_score, max_ops,
+                    out=None):
     """Expand device CIGAR runs ([n, NRL] i16, lane 0 = cursor) into the
-    reference ops buffers (see oracle.cpp aim_wfa_runs_to_ops)."""
+    reference ops buffers (see oracle.cpp aim_wfa_runs_to_ops).  Returns
+    (ops, begin, end), written into ``out`` when it is given."""
     lib = load()
     runs = np.ascontiguousarray(runs, np.int16)
     n, nrl = runs.shape
     scores = np.ascontiguousarray(scores, np.int32)
     plens = np.ascontiguousarray(plens, np.int32)
     tlens = np.ascontiguousarray(tlens, np.int32)
-    ops = np.zeros((n, max_ops), np.uint8)
-    begin = np.zeros(n, np.int32)
-    end = np.zeros(n, np.int32)
+    ops, begin, end = _decoded(out, n, max_ops, with_scores=False)
     lib.aim_wfa_runs_to_ops(runs, nrl, scores, plens, tlens, n,
                             max_score, max_ops, ops, begin, end)
     return ops, begin, end
 
 
-def wfa_steps_to_ops(records, plens, tlens, *, max_score, max_ops):
+def wfa_steps_to_ops(records, plens, tlens, *, max_score, max_ops,
+                     out=None):
     """Expand the v2 kernel's per-score-level step records ([n, SR] i32,
     see ops/wfa_pallas2.py) into the reference ops buffers.  Returns
-    (scores, ops, begin, end); scores come from the record's score row."""
+    (scores, ops, begin, end), written into ``out`` when it is given;
+    scores come from the record's score row."""
     lib = load()
     records = np.ascontiguousarray(records, np.int32)
     n, sr = records.shape
     plens = np.ascontiguousarray(plens, np.int32)
     tlens = np.ascontiguousarray(tlens, np.int32)
-    ops = np.zeros((n, max_ops), np.uint8)
-    scores = np.zeros(n, np.int32)
-    begin = np.zeros(n, np.int32)
-    end = np.zeros(n, np.int32)
+    scores, ops, begin, end = _decoded(out, n, max_ops, with_scores=True)
     lib.aim_wfa_steps_to_ops(records, sr, plens, tlens, n,
                              max_score, max_ops, ops, scores, begin, end)
     return scores, ops, begin, end

@@ -38,7 +38,7 @@ STAGES = (
     "upload",    # to_device_batch and the sync, a wave
     "kernel",    # launch and sync, a chunk; on the host tier, the oracle
     "retrieve",  # the records' .cpu().numpy(), a wave
-    "decode",    # a chunk's records into scores and CIGARs
+    "decode",    # the call's records into scores and CIGARs, one pass
     "retry",     # _retry_wide, its own transfers included
     "fallback",  # the host oracle on flagged pairs, _overflow_bt_pass
     "emit",      # native.emit_output
@@ -47,6 +47,7 @@ COUNTERS = (
     "chunks",     # chunks of the wave loop
     "h2d_bytes",  # the four arrays of each wave-loop block, after packing
     "d2h_bytes",  # the wave loop's records
+    "decode_threads",  # threads that decoded the call's CIGARs, 0 if none
 )
 ENTRIES = ("align", "align_file", "cli")
 CAPACITY = 16384

@@ -47,7 +47,9 @@ def test_align_file_fills_its_stages(tmp_path):
         "chunks": 1,
         "h2d_bytes": up_p.nbytes + up_t.nbytes + pl.nbytes + tl.nbytes,
         # K1's step records: smax + 4 int32 rows a pair
-        "d2h_bytes": N_SAMPLE * (WFA.max_score + 4) * 4}
+        "d2h_bytes": N_SAMPLE * (WFA.max_score + 4) * 4,
+        # 1,000 rows of 224 bytes: below the decode pass's thread minimum
+        "decode_threads": 1}
 
 
 def test_phase_fields_are_their_stages(tmp_path, capsys):
