@@ -367,6 +367,7 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
                                    _decode_threads(n, max_ops))
         flags = [_flagged(fwd.records, rec) for _, rec in chunks]
     spans.count("decode_threads", threads)
+    spans.count("flagged_pairs", sum(len(f) for f in flags if f is not None))
 
     retry_stages = _retry_stages(fwd)
     for lo, blocks, flagged in zip(starts, records, flags):
@@ -393,6 +394,7 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
         with spans.span("fallback"):
             sel = lo + sel
             res.n_fallback += len(sel)
+            spans.count("fallback_pairs", len(sel))
             osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel],
                                               plens[sel], tlens[sel], cfg)
             scores[sel] = osc
@@ -588,6 +590,7 @@ def _retry_wide(tier, cfg: AlignConfig, cpats, ctxts, cplens, ctlens, sel,
     if good.any():
         g = sel[good]
         res.n_retry += len(g)
+        spans.count("retry_pairs", len(g))
         res.retry_by_planes[planes] = \
             res.retry_by_planes.get(planes, 0) + len(g)
         scores[lo + g] = sc2[good]

@@ -49,7 +49,9 @@ def test_align_file_fills_its_stages(tmp_path):
         # K1's step records: smax + 4 int32 rows a pair
         "d2h_bytes": N_SAMPLE * (WFA.max_score + 4) * 4,
         # 1,000 rows of 224 bytes: below the decode pass's thread minimum
-        "decode_threads": 1}
+        "decode_threads": 1,
+        # K1 flags no pair, so the ladder and the oracle take none
+        "flagged_pairs": 0, "retry_pairs": 0, "fallback_pairs": 0}
 
 
 def test_phase_fields_are_their_stages(tmp_path, capsys):
