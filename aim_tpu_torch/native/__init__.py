@@ -21,7 +21,7 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "oracle.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -143,7 +143,7 @@ def load():
         lib.aim_pack_seqs.restype = ctypes.c_int
         lib.aim_pack_seqs.argtypes = [
             _i8p, _i8p, _i32p, _i32p, ctypes.c_long, ctypes.c_int,
-            ctypes.c_int, _i8p, _i8p,
+            ctypes.c_int, _i8p, _i8p, ctypes.c_int,
         ]
         lib.aim_emit_output.restype = ctypes.c_long
         lib.aim_emit_output.argtypes = [
@@ -465,20 +465,28 @@ def emit_output(path, idx, scores, ops, begin, end, backtrace):
     return r
 
 
-def pack_seqs(pats, txts, plens, tlens, rp):
-    """2-bit-pack a pair batch for upload (see ops/ops/common.pack_seqs).
-    Returns (packed_pats, packed_txts, True) or (pats, txts, False)."""
+def pack_seqs(pats, txts, plens, tlens, rp, threads: int = 1):
+    """2-bit-pack a pair batch for upload (see ops/common.pack_seqs): one
+    fused pass that reads each row once, its rows split into up to
+    ``threads`` ranges, each on a thread of the call.  Returns
+    (packed_pats, packed_txts, True, fused threads) or (pats, txts, False,
+    0); the fused threads are 0 where a byte outside ACGT sent the batch
+    through the generic alphabet path, or the batch is empty."""
     lib = load()
     pats, txts, plens, tlens = _prep(pats, txts, plens, tlens)
     n, read_size = pats.shape
+    if txts.shape != pats.shape or plens.shape != (n,) or \
+            tlens.shape != (n,):
+        raise ValueError("pack_seqs: need [n, R] pats and txts, [n] lens")
     rb = rp // 4
-    out_p = np.zeros((n, rb), np.uint8)
-    out_t = np.zeros((n, rb), np.uint8)
-    ok = lib.aim_pack_seqs(pats, txts, plens, tlens, n, read_size, rp,
-                           out_p, out_t)
-    if not ok:
-        return pats, txts, False
-    return out_p, out_t, True
+    # every byte of the [n, rb] rows is written
+    out_p = np.empty((n, rb), np.uint8)
+    out_t = np.empty((n, rb), np.uint8)
+    r = lib.aim_pack_seqs(pats, txts, plens, tlens, n, read_size, rp,
+                          out_p, out_t, max(1, int(threads)))
+    if r < 0:
+        return pats, txts, False, 0
+    return out_p, out_t, True, r
 
 
 def _decoded(out, n: int, max_ops: int, with_scores: bool):

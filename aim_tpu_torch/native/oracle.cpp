@@ -1273,71 +1273,116 @@ extern "C" long aim_emit_output(const char *path, const int32_t *idx,
 
 
 // ---------------------------------------------------------------------------
-// 2-bit sequence packing for H2D uploads (see ops/wfa_pallas.pack_seqs).
-// Returns 1 and fills out_p/out_t ([n, Rp/4] bytes, 4 bases per byte,
-// little-endian 2-bit fields) when the COMBINED alphabet has <= 4 nonzero
-// symbols and byte 0 never occurs inside a valid region; else returns 0.
-// One shared injective recode preserves alignment semantics (the kernels
-// only compare pattern bytes against text bytes for equality).
+// 2-bit sequence packing for H2D uploads (see ops/common.pack_seqs).
+// Fills out_p/out_t ([n, Rp/4] bytes, 4 bases per byte, little-endian
+// 2-bit fields) when the COMBINED alphabet has <= 4 nonzero symbols and
+// byte 0 never occurs inside a valid region.  One shared injective recode
+// preserves alignment semantics (the kernels only compare pattern bytes
+// against text bytes for equality).
 // ---------------------------------------------------------------------------
 
-// SWAR row packer for the canonical DNA alphabet: recode (c >> 1) & 3
-// (A->0, C->1, T->2, G->3 — injective over {A,C,G,T}; padding byte 0
-// -> 0, like lut[0]).  Codes are opaque to every consumer — kernels
-// compare pattern codes with text codes for equality only, and both
-// arrays come from this same call — so the assignment may differ from
-// the generic LUT path's sorted order.
-static inline void pack_row_acgt(const uint8_t *src, uint8_t *dst,
-                                 int read_size, int rb) {
-  const int full = read_size / 4;  // whole 4-byte groups inside the row
-  for (int b = 0; b < full && b < rb; ++b) {
-    uint32_t x;
-    std::memcpy(&x, src + 4 * b, 4);
-    const uint32_t y = (x >> 1) & 0x03030303u;
-    dst[b] = (uint8_t)((y | (y >> 6) | (y >> 12) | (y >> 18)) & 0xFFu);
+#include <atomic>
+#include <system_error>
+#include <thread>
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
+
+static inline bool is_acgt(uint8_t c) {
+  return (c == 'A') | (c == 'C') | (c == 'G') | (c == 'T');
+}
+
+// One row in one read: packs every byte of src[0, read_size) into
+// dst[0, rb) with the ACGT code (c >> 1) & 3 (A->0, C->1, T->2, G->3 —
+// injective over {A,C,G,T}; padding byte 0 -> 0, like lut[0]; bytes past
+// read_size pack as 0) and returns nonzero if a byte of src[0, len) lies
+// outside {A,C,G,T}, an interior NUL included.  Codes are opaque to every
+// consumer — kernels compare pattern codes with text codes for equality
+// only, and both arrays come from this same call — so the assignment may
+// differ from the generic LUT path's sorted order.
+static inline uint32_t pack_row_acgt(const uint8_t *src, uint8_t *dst,
+                                     int read_size, int rb, int len) {
+  const int whole = std::min(read_size, 4 * rb);  // bytes of whole groups
+  uint32_t bad = 0;
+  int j = 0;
+#if defined(__SSE2__)
+  const __m128i kA = _mm_set1_epi8('A'), kC = _mm_set1_epi8('C'),
+                kG = _mm_set1_epi8('G'), kT = _mm_set1_epi8('T');
+  const __m128i k3 = _mm_set1_epi8(3), k15 = _mm_set1_epi16(15),
+                k1_16 = _mm_set1_epi32(0x00100001);
+  // src[at, at + 16) -> one packed byte in the low 8 bits of each dword:
+  // the codes, then 2 a 16-bit lane (4 bits), then 2 lanes a dword
+  auto group = [&](int at) {
+    const __m128i x = _mm_loadu_si128((const __m128i *)(src + at));
+    const __m128i ok = _mm_or_si128(
+        _mm_or_si128(_mm_cmpeq_epi8(x, kA), _mm_cmpeq_epi8(x, kC)),
+        _mm_or_si128(_mm_cmpeq_epi8(x, kG), _mm_cmpeq_epi8(x, kT)));
+    const int in = std::min(std::max(len - at, 0), 16);
+    bad |= ~(uint32_t)_mm_movemask_epi8(ok) & ((1u << in) - 1u);
+    __m128i y = _mm_and_si128(_mm_srli_epi16(x, 1), k3);
+    y = _mm_and_si128(_mm_or_si128(y, _mm_srli_epi16(y, 6)), k15);
+    return _mm_madd_epi16(y, k1_16);
+  };
+  for (; j + 64 <= whole; j += 64) {
+    const __m128i a = _mm_packs_epi32(group(j), group(j + 16));
+    const __m128i b = _mm_packs_epi32(group(j + 32), group(j + 48));
+    _mm_storeu_si128((__m128i *)(dst + j / 4), _mm_packus_epi16(a, b));
   }
-  for (int b = full; b < rb; ++b) {
+  for (; j + 16 <= whole; j += 16) {
+    const __m128i a = _mm_packs_epi32(group(j), _mm_setzero_si128());
+    const uint32_t v = (uint32_t)_mm_cvtsi128_si32(_mm_packus_epi16(a, a));
+    std::memcpy(dst + j / 4, &v, 4);
+  }
+#else
+  for (; j + 8 <= whole; j += 8) {
+    uint64_t x;
+    std::memcpy(&x, src + j, 8);
+    const uint64_t y = (x >> 1) & 0x0303030303030303ull;
+    const uint64_t v = y | (y >> 6) | (y >> 12) | (y >> 18);
+    dst[j / 4] = (uint8_t)v;
+    dst[j / 4 + 1] = (uint8_t)(v >> 32);
+    for (int q = j; q < j + 8 && q < len; ++q) bad |= !is_acgt(src[q]);
+  }
+#endif
+  for (int q = j; q < read_size && q < len; ++q) bad |= !is_acgt(src[q]);
+  for (int b = j / 4; b < rb; ++b) {
     uint8_t v = 0;
     for (int q = 0; q < 4; ++q) {
-      const int j = 4 * b + q;
-      if (j < read_size) v |= (uint8_t)(((src[j] >> 1) & 3) << (2 * q));
+      const int at = 4 * b + q;
+      if (at < read_size) v |= (uint8_t)(((src[at] >> 1) & 3) << (2 * q));
     }
     dst[b] = v;
   }
+  return bad;
 }
 
-extern "C" int aim_pack_seqs(const uint8_t *pats, const uint8_t *txts,
-                             const int32_t *plens, const int32_t *tlens,
-                             long n, int read_size, int rp,
-                             uint8_t *out_p, uint8_t *out_t) {
-  // Fast scan: is every valid byte in {A,C,G,T}?  Branch-free
-  // accumulate (auto-vectorizes under -O3); rejects interior NULs for
-  // free (0 is not in the set).  The canonical datasets always take
-  // this path — the generic seen[]/LUT scan below only runs for
-  // non-ACGT alphabets.
-  uint8_t nonacgt = 0;
-  for (long i = 0; i < n; ++i) {
-    const uint8_t *p = pats + i * read_size;
-    const uint8_t *t = txts + i * read_size;
-    const int pl = plens[i], tl = tlens[i];
-    for (int j = 0; j < pl; ++j) {
-      const uint8_t c = p[j];
-      nonacgt |= (uint8_t)(!(c == 'A' || c == 'C' || c == 'G' || c == 'T'));
-    }
-    for (int j = 0; j < tl; ++j) {
-      const uint8_t c = t[j];
-      nonacgt |= (uint8_t)(!(c == 'A' || c == 'C' || c == 'G' || c == 'T'));
+// Rows [lo, hi) of both arrays; stops at the first row with a byte
+// outside ACGT, or once another range has found one.
+static void pack_range_acgt(const uint8_t *pats, const uint8_t *txts,
+                            const int32_t *plens, const int32_t *tlens,
+                            long lo, long hi, int read_size, int rb,
+                            uint8_t *out_p, uint8_t *out_t,
+                            std::atomic<bool> *flagged) {
+  for (long i = lo; i < hi; ++i) {
+    if (flagged->load(std::memory_order_relaxed)) return;
+    const uint32_t bad =
+        pack_row_acgt(pats + i * read_size, out_p + i * rb, read_size, rb,
+                      plens[i]) |
+        pack_row_acgt(txts + i * read_size, out_t + i * rb, read_size, rb,
+                      tlens[i]);
+    if (bad) {
+      flagged->store(true, std::memory_order_relaxed);
+      return;
     }
   }
-  const int rb = rp / 4;
-  if (!nonacgt) {
-    for (long i = 0; i < n; ++i) {
-      pack_row_acgt(pats + i * read_size, out_p + i * rb, read_size, rb);
-      pack_row_acgt(txts + i * read_size, out_t + i * rb, read_size, rb);
-    }
-    return 1;
-  }
+}
 
+// The generic path: any <= 4 nonzero symbols through a sorted LUT.
+// Returns 1 with out_p/out_t filled, 0 if the batch cannot be packed.
+static int pack_seqs_lut(const uint8_t *pats, const uint8_t *txts,
+                         const int32_t *plens, const int32_t *tlens,
+                         long n, int read_size, int rb,
+                         uint8_t *out_p, uint8_t *out_t) {
   bool seen[256] = {false};
   for (long i = 0; i < n; ++i) {
     const uint8_t *p = pats + i * read_size;
@@ -1379,4 +1424,42 @@ extern "C" int aim_pack_seqs(const uint8_t *pats, const uint8_t *txts,
     }
   }
   return 1;
+}
+
+// Packs the batch in one fused pass that reads each row once, the rows
+// split into up to `threads` contiguous ranges, one thread each (this
+// thread takes the first).  If any range meets a byte outside ACGT
+// inside a valid region, the whole batch goes through the generic path.
+// Returns the threads of the fused pass (>= 1); 0 where the generic path
+// packed the batch, or n == 0; -1 where the batch cannot be packed.
+extern "C" int aim_pack_seqs(const uint8_t *pats, const uint8_t *txts,
+                             const int32_t *plens, const int32_t *tlens,
+                             long n, int read_size, int rp,
+                             uint8_t *out_p, uint8_t *out_t, int threads) {
+  const int rb = rp / 4;
+  if (n <= 0) return 0;
+  threads = std::max(threads, 1);
+  const long step = (n + threads - 1) / threads;
+  const int ranges = (int)((n + step - 1) / step);
+  std::atomic<bool> flagged{false};
+  auto run = [&](int r) {
+    pack_range_acgt(pats, txts, plens, tlens, r * step,
+                    std::min(n, (r + 1) * step), read_size, rb, out_p,
+                    out_t, &flagged);
+  };
+  std::vector<std::thread> pool;
+  int started = 1;
+  for (; started < ranges; ++started) {
+    try {
+      pool.emplace_back(run, started);
+    } catch (const std::system_error &) {
+      break;  // no thread to be had: this thread takes the rest
+    }
+  }
+  run(0);
+  for (int r = started; r < ranges; ++r) run(r);
+  for (auto &t : pool) t.join();
+  if (!flagged.load()) return started;
+  return pack_seqs_lut(pats, txts, plens, tlens, n, read_size, rb, out_p,
+                       out_t) ? 0 : -1;
 }

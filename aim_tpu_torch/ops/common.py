@@ -10,11 +10,20 @@ port carries its own copies; tests hold them equal).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from aim_tpu_torch import spans
+
 # The reference scan's fill for masked lanes (aim_tpu/ops/common.py:28).
 SCAN_BIG = 2 ** 24
+# input bytes (both arrays' rows) a thread of the pack pass takes at
+# least: below twice this the pass runs on the calling thread.  On an
+# H100's 8-core host a std::thread costs ~0.15 ms to start; a pass of
+# 2 MiB ran no faster on 2 threads than on one, 4 MiB ran fastest on 4.
+PACK_MIN_BYTES = 1 << 20
 
 
 def round_up(x: int, m: int) -> int:
@@ -64,14 +73,18 @@ def pack_seqs(pats, txts, plens, tlens, read_size: int):
     COMBINED alphabet has <= 4 symbols (the DNA case), else the inputs
     unchanged with False.  One shared injective recode preserves alignment
     semantics: the kernels only compare pattern bytes against text bytes
-    for equality.
+    for equality.  The native pass runs on ``_pack_threads`` threads and
+    adds the threads of its fused ACGT pass to the call's ``pack_threads``.
     """
     Rp = -(-(read_size + 2) // 8) * 8
     from aim_tpu_torch import native
     if native.available():
-        return native.pack_seqs(np.ascontiguousarray(pats, np.uint8),
-                                np.ascontiguousarray(txts, np.uint8),
-                                plens, tlens, Rp)
+        pats = np.ascontiguousarray(pats, np.uint8)
+        pp, pt, ok, threads = native.pack_seqs(
+            pats, np.ascontiguousarray(txts, np.uint8), plens, tlens, Rp,
+            _pack_threads(*pats.shape))
+        spans.count("pack_threads", threads)
+        return pp, pt, ok
     seen = np.zeros(256, bool)
     seen[pats.reshape(-1)] = True
     seen[txts.reshape(-1)] = True
@@ -98,6 +111,14 @@ def pack_seqs(pats, txts, plens, tlens, read_size: int):
         return np.ascontiguousarray(pk)
 
     return one(pats), one(txts), True
+
+
+def _pack_threads(n: int, width: int) -> int:
+    """Threads for the pack pass over ``n`` pairs of ``width``-byte rows:
+    one for each ``PACK_MIN_BYTES`` of both arrays, at least one, at most
+    parse's min(cores, 16)."""
+    cores = min(os.cpu_count() or 1, 16)
+    return max(1, min(cores, 2 * n * width // PACK_MIN_BYTES))
 
 
 def to_device_batch(pats, txts, plens, tlens, device):

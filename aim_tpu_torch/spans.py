@@ -48,6 +48,7 @@ COUNTERS = (
     "h2d_bytes",  # the four arrays of each wave-loop block, after packing
     "d2h_bytes",  # the wave loop's records
     "decode_threads",  # threads that decoded the call's CIGARs, 0 if none
+    "pack_threads",    # threads of the fused ACGT pack pass, 0 if none
     "flagged_pairs",   # pairs the primary tier flagged
     "retry_pairs",     # flagged pairs a wider band of the ladder certified
     "fallback_pairs",  # flagged pairs the exact host oracle computed
