@@ -1,17 +1,17 @@
 """High-level alignment API of the port: batches, device phases, decode.
 
-The counterpart of ``aim_tpu/api.py``: sort long reads by estimated
-difficulty, pack the pairs, pick the tier for the batch's alphabet, upload
-each chunk, run the kernel (or the dense exact tier), pull the records,
-decode them by their grammar (WFA and GenASM step records, packed runs, or
-the dense tiers' direction codes and histories) into scores and CIGARs
-with the native decoders (step records and packed runs in one pass over
-the batch, on row ranges across the host's cores), re-run the pairs a
-tier flags on the wider bands of the retry ladder and then on the exact
-host oracle, emit the reference-format file.  ``device`` is one device
-or a list of them: a list shards each chunk into one contiguous block an
-entry, as ``aim_tpu``'s ``shard_map`` over its pair mesh does
-(``parallel.mesh``).
+The counterpart of ``aim_tpu/api.py``: pack the pairs, pick the tier for
+the batch's alphabet, upload each chunk, run the kernel (or the dense
+exact tier), pull the records, decode them by their grammar (WFA and
+GenASM step records, packed runs, or the dense tiers' direction codes and
+histories) into scores and CIGARs with the native decoders (step records
+and packed runs in one pass over the batch, on row ranges across the
+host's cores), re-run the pairs a tier flags on the wider bands of the
+retry ladder and then on the exact host oracle, emit the reference-format
+file.  Every batch takes this one path, in input order, at every read
+size.  ``device`` is one device or a list of them: a list shards each
+chunk into one contiguous block an entry, as ``aim_tpu``'s ``shard_map``
+over its pair mesh does (``parallel.mesh``).
 GenASM configs no kernel admits run on the host tier: the oracle is their
 compute path.  The host runtime (parser, record
 decoders, emitter, oracle) is the port's ``aim_tpu_torch.native``.
@@ -57,8 +57,8 @@ class AlignResult:
     ops: np.ndarray | None = None      # [n, 2R] uint8 (backtrace only)
     begin: np.ndarray | None = None    # [n] int32
     end: np.ndarray | None = None      # [n] int32
-    # device phase timings (seconds), from the call's stages: upload and
-    # sort, kernel, retrieve
+    # device phase timings (seconds), from the call's stages: upload,
+    # kernel, retrieve
     t_load: float = 0.0
     t_kernel: float = 0.0
     t_retrieve: float = 0.0
@@ -140,27 +140,6 @@ def _plan_bs(cfg: AlignConfig, n: int, devices,
     return max(round_up(bs, align_to), align_to)
 
 
-def _deal_order(order, n: int, bs: int, ndev: int):
-    """Shard-aware dealing of a difficulty-sorted order (VERDICT r3 item
-    5): within each device chunk, sorted pairs are dealt round-robin
-    across the ndev contiguous device blocks, so every shard gets a
-    balanced difficulty mix (a contiguously sharded globally-sorted
-    batch would hand one device all the hardest pairs and the dispatch
-    would wait on it) while each block stays internally sorted — the
-    tile-grouping win the sort exists for (SURVEY §7.3)."""
-    perm = np.empty(n, dtype=order.dtype)
-    blk = max(1, bs // ndev)
-    for c0 in range(0, n, bs):
-        m = min(bs, n - c0)
-        band = order[c0:c0 + m]
-        pos = np.arange(m)
-        # Dealing order: visit chunk positions by (slot-within-block,
-        # block) so turn j lands in block j % ndev at slot j // ndev.
-        deal = np.lexsort((pos // blk, pos % blk))
-        perm[c0 + deal] = band
-    return perm
-
-
 def _blocks(lo: int, hi: int, bs: int, devices):
     """The non-empty blocks of chunk [lo, hi) of a ``bs``-pair plan as
     (device, b0, b1): one contiguous block of ``bs // ndev`` pairs a
@@ -184,21 +163,6 @@ def _gather(parts):
     return np.concatenate(parts)
 
 
-def _difficulty_order(pats, txts, plens, tlens):
-    """Stable ascending sort order by a cheap edit-distance proxy
-    (subsampled diagonal Hamming count + length skew), copied from
-    ``aim_tpu/api.py``: pairs of one chunk then end near one score, and
-    the chunk's slowest pair sets its time.  Column subsampling (<= 512
-    sampled positions) keeps the host pass cheap at long read lengths."""
-    pl = np.asarray(plens).astype(np.int64)
-    tl = np.asarray(tlens).astype(np.int64)
-    step = max(1, pats.shape[1] // 512)
-    pos = np.arange(0, pats.shape[1], step)
-    valid = pos[None, :] < np.minimum(pl, tl)[:, None]
-    ham = ((pats[:, pos] != txts[:, pos]) & valid).sum(1).astype(np.int64)
-    return np.argsort(ham * step + np.abs(pl - tl), kind="stable")
-
-
 def align(pats, txts, plens, tlens, cfg: AlignConfig,
           device="cuda") -> AlignResult:
     """Align a pair batch ([n, R] uint8 pats/txts, [n] int32 lengths) on
@@ -212,15 +176,9 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
     pair order; a block's flagged pairs climb the retry ladder on its
     device.  The output is the one-device run's, byte for byte.
 
-    As in ``aim_tpu.api.align``, long reads (read_size >= 1024, more than
-    128 pairs) run in estimated-difficulty order; AIM_TPU_SORT=0 turns
-    that off, =1 on for any read size.  Over several devices the sorted
-    order is dealt round-robin across each chunk's blocks
-    (``_deal_order``).  The output order is the input's.
-
     The call's host stages are timed by ``aim_tpu_torch.spans``; the
-    record is ``res.spans``, and ``t_load`` (upload + sort), ``t_kernel``
-    and ``t_retrieve`` are its stages."""
+    record is ``res.spans``, and ``t_load`` (upload), ``t_kernel`` and
+    ``t_retrieve`` are its stages."""
     with spans.call("align", pats.shape[0]) as rec:
         cfg.validate()
         devs = _device_list(device)
@@ -230,47 +188,13 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
         if n and max(int(plens.max()), int(tlens.max())) > cfg.read_size:
             raise ValueError(
                 f"sequence longer than read_size={cfg.read_size}")
-        sort_env = os.environ.get("AIM_TPU_SORT", "")
-        sort_on = sort_env == "1" if sort_env in ("0", "1") \
-            else cfg.read_size >= 1024
-        if sort_on and n > 128:
-            res = _sorted_align(pats, txts, plens, tlens, cfg, devs)
-        else:
-            res = _align_impl(pats, txts, plens, tlens, cfg, devs)
+        res = _align_impl(pats, txts, plens, tlens, cfg, devs)
         sec = rec.seconds
-        res.t_load = sec["upload"] + sec["sort"]
+        res.t_load = sec["upload"]
         res.t_kernel = sec["kernel"]
         res.t_retrieve = sec["retrieve"]
         res.spans = rec
     return res
-
-
-def _sorted_align(pats, txts, plens, tlens, cfg: AlignConfig,
-                  devs: list[torch.device]) -> AlignResult:
-    """``_align_impl`` on the pairs in difficulty order, the outputs back
-    in input order."""
-    n = pats.shape[0]
-    with spans.span("sort"):
-        order = _difficulty_order(pats, txts, plens, tlens)
-    if len(devs) > 1:
-        with spans.span("plan"):
-            bs = _plan_bs(cfg, n, devs)
-        with spans.span("sort"):
-            order = _deal_order(order, n, bs, len(devs))
-    with spans.span("permute"):
-        args = pats[order], txts[order], plens[order], tlens[order]
-    res = _align_impl(*args, cfg, devs)
-    del args
-    with spans.span("permute"):
-        inv = np.empty_like(order)
-        inv[order] = np.arange(n)
-        return AlignResult(
-            res.scores[inv],
-            res.ops[inv] if res.ops is not None else None,
-            res.begin[inv] if res.begin is not None else None,
-            res.end[inv] if res.end is not None else None,
-            n_fallback=res.n_fallback, n_retry=res.n_retry,
-            retry_by_planes=res.retry_by_planes)
 
 
 def _nbytes(out) -> int:

@@ -31,8 +31,11 @@ import torch.autograd.profiler as _profiler
 
 STAGES = (
     "parse",     # native.parse_pairs
-    "sort",      # _difficulty_order and _deal_order
-    "permute",   # the inputs gathered by the sort's order, the outputs back
+    # "sort" and "permute": no code opens them, so they read 0; they stay
+    # because benchmark/metrics/sort_ms_per_mpair.py and
+    # permute_ms_per_mpair.py index these fields of the ring
+    "sort",
+    "permute",
     "pack",      # pack_seqs and the tier pick
     "plan",      # _plan_bs (cudaMemGetInfo), the result arrays
     "upload",    # to_device_batch and the sync, a wave

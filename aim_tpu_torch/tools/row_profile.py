@@ -45,10 +45,11 @@ band``), and of K5 (csrc/wfa_long.cu) at `wfa -l 10000 -e 0.01 -b -r
 
 ``--times`` prints only the kernel times that compare two trees of the
 port (K1 on 16,384 pairs; K5 on 1,024 pairs adaptive and non-adaptive,
-and on the 8,192 pairs of chip_smoke.py's 10 kbp CLI run in the CLI's
-difficulty order; K6 and K7 on the 4,096-pair NW and SWG 4 kbp chunks,
-with a digest of K7's records); it drives the kernels through their public
-wrappers alone, so it runs unchanged from the root of an older tree.
+and on the 8,192 pairs of chip_smoke.py's 10 kbp CLI run in the order
+the CLI launches them, the generated one; K6 and K7 on the 4,096-pair NW
+and SWG 4 kbp chunks, with a digest of K7's records); it drives the
+kernels through their public wrappers alone, so it runs unchanged from
+the root of an older tree.
 
 Each reading prints one JSON line (and appends it to ``--out``).
 """
@@ -225,15 +226,13 @@ def wfa_band(dev, out):
 
 def wfa_times(dev, out):
     """The kernel times two trees are compared on (module docstring)."""
-    from aim_tpu_torch import api
     rows = [wfa_batch(100, 16384, dev), wfa_batch(10000, 1024, dev),
             wfa_batch(10000, 1024, dev, adaptive=False)]
     cfg = wfa_batch(10000, 4, dev)[0]
     p, t, pl, tl = datagen.generate_pairs(LONG_CLI_PAIRS, 10000, 0.01,
                                           read_size=cfg.read_size, seed=0)
-    o = api._difficulty_order(p, t, pl, tl)
-    pp, pt, packed = pack_seqs(p[o], t[o], pl[o], tl[o], cfg.read_size)
-    rows.append((cfg, to_device_batch(pp, pt, pl[o], tl[o], dev), packed))
+    pp, pt, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
+    rows.append((cfg, to_device_batch(pp, pt, pl, tl, dev), packed))
     for cfg, args, packed in rows:
         ms, levels, info = _wfa_time(cfg, args, packed)
         _emit({"reading": "times", "kernel": _wfa_fn(cfg)[0],

@@ -50,10 +50,11 @@ before the last line:
               pairs at 10 kbp, 4096 pairs at 4 kbp for K6 and K7 (K7 also
               on the SWG chunk, `swg -l 4096 -e 0.01 -b --variant hbm`); their
               records compared once more at this, the CLI's launch shape;
-              K5 also alone on the 8,192 pairs of the 10 kbp CLI run, in its
-              difficulty order; K6 also on the first 1024 pairs of its chunk
-              (the 4 kbp CLI runs' size); K1's to K7's registers, spills,
-              shared memory, resident blocks an SM and pairs a warp.  The
+              K5 also alone on the 8,192 pairs of the 10 kbp CLI run, in
+              the order it launches them; K6 also on the first 1024 pairs
+              of its chunk (the 4 kbp CLI runs' size); K1's to K7's
+              registers, spills, shared memory, resident blocks an SM and
+              pairs a warp.  The
               WFA bounds count the live (level, diagonal) cells of the
               plain version's level extents and a compare a 32-base window
               of matched bases; the lines also give the operations the
@@ -80,8 +81,8 @@ before the last line:
   9. multi    pair sharding: `api.align_file` over `[cuda:0] * 4` (and
               over every card where there are more) on the 1M-pair main
               path, `nw -b`, `swg -b`, `genasm -b` on the sample, the
-              first 1,024 of the 10 kbp pairs (`-b -r`, sorted and dealt
-              over the shards) and K2's ladder input; each output
+              first 1,024 of the 10 kbp pairs (`-b -r`, contiguous
+              blocks in input order) and K2's ladder input; each output
               `cmp`-equal to the one-device run's and to the oracle's,
               the run's kernel launched once a non-empty block (the
               ladder's K6/K7 above 0) and no other kernel, one device-log
@@ -1304,17 +1305,15 @@ def phase_timing(reps=20):
         out[name] = (k_ms, p_ms, err) + bnd[:2]
         if name == "wfa_long":
             # K5 on the chunk the 10 kbp CLI run launches: its LONG_PAIRS
-            # pairs in the CLI's difficulty order, kernel only (the plain
-            # version would take minutes; the run's output is cmp-checked
-            # against the oracle in phase 3), the bound its bytes'
-            from aim_tpu_torch.api import _difficulty_order
+            # pairs in the order the CLI launches them, kernel only (the
+            # plain version would take minutes; the run's output is
+            # cmp-checked against the oracle in phase 3), the bound its
+            # bytes'
             p, t, pl, tl = datagen.generate_pairs(LONG_PAIRS, length, 0.01,
                                                   read_size=cfg.read_size,
                                                   seed=SEED)
-            o = _difficulty_order(p, t, pl, tl)
-            pp, pt, packed = pack_seqs(p[o], t[o], pl[o], tl[o],
-                                       cfg.read_size)
-            big = to_device_batch(pp, pt, pl[o], tl[o], DEVICE)
+            pp, pt, packed = pack_seqs(p, t, pl, tl, cfg.read_size)
+            big = to_device_batch(pp, pt, pl, tl, DEVICE)
             k_ms = timed(lambda: fwd(*big, cfg=cfg, packed=packed), 5)
             rec = fwd(*big, cfg=cfg, packed=packed)
             report(name, cfg, length, flags, LONG_PAIRS, k_ms, None, 5,

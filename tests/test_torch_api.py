@@ -87,7 +87,6 @@ def test_align_file_cpu_matches_oracle_and_jax(tmp_path, algo, err, flags):
     # 3 edits a pair against k = 2: most pairs overflow
     (["genasm", "-l", "100", "-e", "0.01", "-b"], 300, 0.03),
     (["genasm", "-l", "100", "-e", "0.01"], 300, 0.03),
-    # 160 pairs > 128 at read_size >= 1024: the difficulty sort is on
     (["wfa", "-l", "1000", "-e", "0.01", "-b", "-r", "--variant", "hbm"],
      160, 0.01),
 ], ids=["genasm-b", "genasm", "wfa-l1000-hbm"])
@@ -153,19 +152,16 @@ def test_align_file_cpu_long_tiers(tmp_path, monkeypatch, argv, n, gen_err,
         assert min(res.retry_by_planes.values()) > 0
 
 
-def test_difficulty_sort_as_reference(monkeypatch):
-    """The sort order is the reference's; output order is the input's
-    whether the sort runs or not; it runs for long reads past 128 pairs,
-    and AIM_TPU_SORT forces it either way."""
+def test_long_batch_runs_in_input_order(monkeypatch):
+    """More than 128 pairs under a read_size >= 1024 config reach
+    ``_align_impl`` once, in input order, and come back equal to the
+    native oracle."""
     from aim_tpu import datagen
-    from aim_tpu.api import _difficulty_order
     cfg = derive_config("wfa", 1000, 0.02, backtrace=True, adaptive=True,
                         variant="hbm")
-    p, t, pl, tl = datagen.generate_pairs(150, 1000, 0.02,
+    assert cfg.read_size >= 1024
+    p, t, pl, tl = datagen.generate_pairs(150, 100, 0.02,
                                           read_size=cfg.read_size, seed=8)
-    order = tapi._difficulty_order(p, t, pl, tl)
-    np.testing.assert_array_equal(order, _difficulty_order(p, t, pl, tl))
-    assert (order != np.arange(len(pl))).any()
     calls = []
     impl = tapi._align_impl
 
@@ -174,23 +170,15 @@ def test_difficulty_sort_as_reference(monkeypatch):
         return impl(pats, *a, **kw)
 
     monkeypatch.setattr(tapi, "_align_impl", spy)
-    outs = {}
-    for env in ("", "0", "1"):
-        monkeypatch.setenv("AIM_TPU_SORT", env)
-        outs[env] = tapi.align(p, t, pl, tl, cfg, device="cpu")
-    np.testing.assert_array_equal(calls[0], p[order])   # default: on
-    np.testing.assert_array_equal(calls[1], p)          # forced off
-    np.testing.assert_array_equal(calls[2], p[order])   # forced on
-    for res in outs.values():
-        np.testing.assert_array_equal(res.scores, outs["0"].scores)
-        np.testing.assert_array_equal(res.ops, outs["0"].ops)
-        np.testing.assert_array_equal(res.begin, outs["0"].begin)
-    # short reads: off by default
-    monkeypatch.setenv("AIM_TPU_SORT", "")
-    sp, st, spl, stl = nat.parse_pairs(SAMPLE, 200, 112)
-    tapi.align(sp, st, spl, stl, derive_config("wfa", 100, 0.01),
-               device="cpu")
-    np.testing.assert_array_equal(calls[-1], sp)
+    res = tapi.align(p, t, pl, tl, cfg, device="cpu")
+    assert len(calls) == 1
+    np.testing.assert_array_equal(calls[0], p)
+    want = nat.wfa_align(p, t, pl, tl, mismatch=cfg.mismatch,
+                         gap_o=cfg.gap_o, gap_e=cfg.gap_e,
+                         max_score=cfg.max_score, adaptive=cfg.adaptive,
+                         backtrace=True)
+    for got, ref in zip((res.scores, res.ops, res.begin, res.end), want):
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_align_small_chunks_equal_one_chunk():

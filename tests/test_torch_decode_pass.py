@@ -144,11 +144,9 @@ def test_pass_writes_the_per_chunk_bytes(family, monkeypatch):
         _assert_equal(got, want)
 
 
-@pytest.mark.parametrize("sort", ["0", "1"], ids=["unsorted", "sorted"])
-def test_thread_minimum_and_sorted_path(sort, monkeypatch):
+def test_thread_minimum(monkeypatch):
     """Below the thread minimum the pass runs on one thread, above it on
-    several; the output is the same either way, sorted or not."""
-    monkeypatch.setenv("AIM_TPU_SORT", sort)
+    several; the output is the same either way."""
     monkeypatch.setattr(tapi.os, "cpu_count", lambda: 8)
     cfg = WFA.replace(batch_pairs=64)
     n = 300
@@ -161,14 +159,8 @@ def test_thread_minimum_and_sorted_path(sort, monkeypatch):
     above = tapi.align(p, t, pl, tl, cfg, "cpu")
     assert above.spans.counts["decode_threads"] == 6
     assert spans.calls()[-1]["decode_threads"] == 6
-    for res in (below, above):
-        assert (res.spans.seconds["permute"] > 0) == (sort == "1")
     _assert_equal((above.scores, above.ops, above.begin, above.end),
                   (below.scores, below.ops, below.begin, below.end))
-    monkeypatch.setenv("AIM_TPU_SORT", "0")
-    plain = tapi.align(p, t, pl, tl, cfg, "cpu")
-    _assert_equal((above.scores, above.ops, above.begin, above.end),
-                  (plain.scores, plain.ops, plain.begin, plain.end))
 
 
 def test_thread_rule(monkeypatch):

@@ -44,19 +44,6 @@ def test_shard_range_matches_reference(n_hosts):
         assert covered == list(range(total))
 
 
-@pytest.mark.parametrize("ndev", [1, 2, 3, 4, 8])
-def test_deal_order_matches_reference(ndev):
-    from aim_tpu.api import _deal_order
-    rng = np.random.default_rng(ndev)
-    for n in (1, 7, 64, 100, 1000, 1003):
-        for bs in (8 * ndev, 64 * ndev, 1024):
-            order = rng.permutation(n)
-            got = tapi._deal_order(order, n, bs, ndev)
-            np.testing.assert_array_equal(got, _deal_order(order, n, bs,
-                                                           ndev))
-            np.testing.assert_array_equal(np.sort(got), np.arange(n))
-
-
 def test_devices_and_device_lists(monkeypatch):
     """devices(n) lists the first n cards and raises past the host's; a
     device list naming a missing card raises before any work."""
@@ -88,31 +75,29 @@ def test_plan_bs_aligns_to_devices():
 
 
 def _cfg_for(case):
-    """(config, pairs, env) of a sharded case, from test_sharding.py's
-    seeds where it has the family."""
+    """(config, pairs) of a sharded case, from test_sharding.py's seeds
+    where it has the family."""
     if case.startswith("wfa"):
         return AlignConfig(algo="wfa", read_size=24, max_score=12,
                            backtrace=True, adaptive=True,
-                           batch_pairs=64), random_pairs(31, 100, 24), {}
+                           batch_pairs=64), random_pairs(31, 100, 24)
     if case.startswith("nw"):
         return AlignConfig(algo="nw", read_size=40, max_score=10,
                            backtrace=True, gap_i=2, gap_d=3, mismatch=3,
-                           batch_pairs=64), random_pairs(53, 100, 32), {}
+                           batch_pairs=64), random_pairs(53, 100, 32)
     if case.startswith("swg"):
         return AlignConfig(algo="swg", read_size=40, max_score=26,
                            backtrace=True, match=0, mismatch=3, gap_o=4,
-                           gap_e=1, batch_pairs=64), \
-            random_pairs(59, 100, 32), {}
+                           gap_e=1, batch_pairs=64), random_pairs(59, 100, 32)
     if case.startswith("genasm"):
         return AlignConfig(algo="genasm", read_size=40, max_score=6,
                            backtrace=True, batch_pairs=64), \
-            random_pairs(61, 100, 32), {}
+            random_pairs(61, 100, 32)
     if case.startswith("long"):
-        # 160 pairs > 128 at R 640: sorted, then dealt over the shards
+        # K5's tier at R 640, 160 pairs over three chunks
         return AlignConfig(algo="wfa", read_size=640, max_score=40,
                            backtrace=True, adaptive=True, variant="hbm",
-                           batch_pairs=64), \
-            random_pairs(67, 160, 600), {"AIM_TPU_SORT": "1"}
+                           batch_pairs=64), random_pairs(67, 160, 600)
     raise KeyError(case)
 
 
@@ -151,17 +136,15 @@ def _file(path, scores, ops, begin, end, backtrace):
 
 
 @pytest.mark.parametrize("case", ["wfa", "wfa-xla", "nw", "nw-xla", "swg",
-                                  "swg-xla", "genasm", "long-sorted"])
+                                  "swg-xla", "genasm", "long"])
 def test_sharded_align_equals_one_shard_and_oracle(tmp_path, monkeypatch,
                                                    case):
     """Four shards on the CPU: byte-equal to one shard and to the oracle;
     each chunk split into contiguous blocks of bs // 4 pairs, the tail's
     empty blocks launched nowhere."""
-    cfg, pairs, env = _cfg_for(case)
+    cfg, pairs = _cfg_for(case)
     if case.endswith("xla"):
         cfg = cfg.replace(backend="xla")
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
     p, t, pl, tl = pack(pairs, cfg.read_size)
     n = len(pl)
     calls = _spy_forward(monkeypatch)

@@ -60,7 +60,7 @@ def test_phase_fields_are_their_stages(tmp_path, capsys):
     res = tapi.align_file(SAMPLE, str(tmp_path / "o"), N_SAMPLE, WFA,
                           device="cpu")
     sec = res.spans.seconds
-    assert res.t_load == sec["upload"] + sec["sort"]
+    assert res.t_load == sec["upload"]
     assert res.t_kernel == sec["kernel"]
     assert res.t_retrieve == sec["retrieve"]
     lines = capsys.readouterr().out.splitlines()
@@ -179,16 +179,28 @@ def test_no_profiler_enters_no_range(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("ndev", [1, 2], ids=["one-device", "two-shards"])
-def test_sort_spans_and_equal_output(tmp_path, monkeypatch, ndev):
-    devs = ["cpu"] * ndev
-    monkeypatch.setenv("AIM_TPU_SORT", "0")
-    _, plain = _file_call(tmp_path, "plain", device=devs)
-    monkeypatch.setenv("AIM_TPU_SORT", "1")
-    _, rec = _file_call(tmp_path, "sorted", device=devs)
-    assert plain.seconds["sort"] == plain.seconds["permute"] == 0
-    assert rec.seconds["sort"] > 0 and rec.seconds["permute"] > 0
-    assert (tmp_path / "sorted").read_bytes() == \
-        (tmp_path / "plain").read_bytes()
+def test_long_file_call_has_no_sort_or_permute(tmp_path, ndev):
+    """More than 128 short pairs under a read_size >= 1024 config: the file
+    is the native oracle's on one device and over two shards, and the
+    ``sort`` and ``permute`` stages read 0."""
+    from aim_tpu_torch import native
+    cfg = derive_config("wfa", 1000, 0.01, backtrace=True, adaptive=True,
+                        variant="hbm")
+    assert cfg.read_size >= 1024
+    n = 200
+    res = tapi.align_file(SAMPLE, str(tmp_path / "port"), n, cfg,
+                          device=["cpu"] * ndev, verbose=False)
+    assert res.spans.seconds["sort"] == res.spans.seconds["permute"] == 0
+    assert spans.calls()[-1]["sort"] == spans.calls()[-1]["permute"] == 0
+    p, t, pl, tl = native.parse_pairs(SAMPLE, n, cfg.read_size)
+    sc, ops, b, e = native.wfa_align(
+        p, t, pl, tl, mismatch=cfg.mismatch, gap_o=cfg.gap_o,
+        gap_e=cfg.gap_e, max_score=cfg.max_score, adaptive=cfg.adaptive,
+        backtrace=True)
+    native.emit_output(str(tmp_path / "oracle"), np.arange(n, dtype=np.int32),
+                       sc, ops, b, e, True)
+    assert (tmp_path / "port").read_bytes() == \
+        (tmp_path / "oracle").read_bytes()
 
 
 def test_device_log_reads_retry_and_fallback(tmp_path):
