@@ -646,8 +646,11 @@ def align_file(input_path: str, output_path: str, n_reads: int,
     devs = _device_list(device)
     with _profiled(profile_dir, devs), spans.call("align_file") as rec:
         with spans.span("parse"):
+            threads = native.parse_threads(input_path, n_reads,
+                                           cfg.read_size)
             pats, txts, plens, tlens = native.parse_pairs(
-                input_path, n_reads, cfg.read_size, threads=0)
+                input_path, n_reads, cfg.read_size, threads)
+        spans.count("parse_threads", threads)
         rec.pairs = len(plens)
         meter = _energy.Meter(devs) if energy else None
         res = align(pats, txts, plens, tlens, cfg, devs)

@@ -26,11 +26,17 @@ _LOCK = threading.Lock()
 _LIB = None
 
 _i8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
-_i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i16p = np.ctypeslib.ndpointer(dtype=np.int16, flags="C_CONTIGUOUS")
 _i16pv = np.ctypeslib.ndpointer(dtype=np.int16)  # strided views OK
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _chp = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")  # char*
+# parse_pairs' allocator, called once from inside the parse with the pair
+# count: fills out[0:4] with the outputs' addresses and returns 0, or
+# returns 1 where they cannot be had
+_PARSE_ALLOC = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_long,
+                                ctypes.POINTER(ctypes.c_void_p))
+# file bytes a thread of the parse pass takes at least
+PARSE_MIN_BYTES = 1 << 20
 
 
 def library_path() -> str:
@@ -64,10 +70,10 @@ def load():
             return _LIB
         lib = ctypes.CDLL(_build())
 
-        lib.aim_parse_pairs.restype = ctypes.c_long
-        lib.aim_parse_pairs.argtypes = [
-            ctypes.c_char_p, ctypes.c_long, ctypes.c_int,
-            _i8p, _i8p, _i32p, _i32p,
+        lib.aim_parse_pairs_par.restype = ctypes.c_long
+        lib.aim_parse_pairs_par.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+            _PARSE_ALLOC,
         ]
         lib.aim_parse_pairs_range.restype = ctypes.c_long
         lib.aim_parse_pairs_range.argtypes = [
@@ -76,16 +82,6 @@ def load():
         ]
         lib.aim_count_pairs.restype = ctypes.c_long
         lib.aim_count_pairs.argtypes = [ctypes.c_char_p, ctypes.c_long]
-        lib.aim_pair_offsets.restype = ctypes.c_long
-        lib.aim_pair_offsets.argtypes = [
-            ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
-            _i64p, _i64p,
-        ]
-        lib.aim_parse_pairs_at.restype = ctypes.c_long
-        lib.aim_parse_pairs_at.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_long, ctypes.c_long,
-            ctypes.c_int, _i8p, _i8p, _i32p, _i32p,
-        ]
         lib.aim_nw_align.restype = None
         lib.aim_nw_align.argtypes = [
             _i8p, _i8p, _i32p, _i32p, ctypes.c_long,
@@ -166,80 +162,65 @@ def available() -> bool:
 # numpy-facing wrappers
 # ---------------------------------------------------------------------------
 
+def parse_threads(path: str, max_pairs: int, read_size: int) -> int:
+    """Threads for ``parse_pairs(path, max_pairs, read_size)``: one for
+    each ``PARSE_MIN_BYTES`` of the bytes it maps (the file, or the
+    2 * (read_size + 2) bytes a pair that ``max_pairs`` valid pairs take
+    at most, where that is shorter), at least one, at most min(cores,
+    16), the cap of the pack and decode passes."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return 1  # parse_pairs reports the path
+    size = min(size, max(max_pairs, 0) * 2 * (read_size + 2))
+    return max(1, min(os.cpu_count() or 1, 16, size // PARSE_MIN_BYTES))
+
+
 def parse_pairs(path: str, max_pairs: int, read_size: int, threads: int = 1):
     """Parse a '>pattern\\n<text\\n' pair file (ref: host.c get_reads).
 
     Returns (patterns [n,R] u8, texts [n,R] u8, plens [n] i32, tlens [n] i32).
-    Raises ValueError if a sequence exceeds read_size.
+    Raises ValueError if a sequence exceeds read_size, at the global first
+    offender's line.
 
-    threads > 1 (or 0 = one per core) parses row windows in parallel:
-    one streaming pass records each window's byte offset, then the
-    workers parse disjoint windows directly (ctypes releases the GIL).
-    Byte-identical output and fatal semantics (the reported line is the
-    global first offender), same as the sequential path.
+    One pass over a read-only map of the file (``aim_parse_pairs_par``):
+    ``threads`` byte ranges each count their lines and then copy their
+    pairs straight from the map into the rows, each range on a thread of
+    the call (ctypes releases the GIL); 0 picks ``parse_threads``.  The
+    outputs are made once the pair count is known, with ``np.empty``:
+    the pass writes every byte of them.
     """
     lib = load()
     if threads in (None, 0):
-        threads = min(os.cpu_count() or 1, 16)
-    if threads > 1 and max_pairs >= 4096:
-        return _parse_pairs_mt(lib, path, max_pairs, read_size, threads)
-    pats = np.zeros((max_pairs, read_size), np.uint8)
-    txts = np.zeros((max_pairs, read_size), np.uint8)
-    plens = np.zeros(max_pairs, np.int32)
-    tlens = np.zeros(max_pairs, np.int32)
-    n = lib.aim_parse_pairs(path.encode(), max_pairs, read_size,
-                            pats, txts, plens, tlens)
+        threads = parse_threads(path, max_pairs, read_size)
+    out = []
+
+    @_PARSE_ALLOC
+    def alloc(n, ptrs):
+        try:
+            out.extend((np.empty((n, read_size), np.uint8),
+                        np.empty((n, read_size), np.uint8),
+                        np.empty(n, np.int32), np.empty(n, np.int32)))
+        except MemoryError:
+            return 1
+        for k, a in enumerate(out):
+            ptrs[k] = a.ctypes.data
+        return 0
+
+    n = lib.aim_parse_pairs_par(path.encode(), max_pairs, read_size,
+                                max(1, int(threads)), alloc)
     if n == -1000000000:
         raise FileNotFoundError(path)
+    if n == -1000000001:
+        raise OSError(f"cannot map {path}")
+    if n == -1000000002:
+        raise MemoryError(f"no room for the pairs of {path}")
     if n < 0:
         # Mirrors the reference's fatal "READ LENGTH less than length of the
         # input reads" (ref: host.c:119-123).
         raise ValueError(
             f"read longer than READ_SIZE={read_size} at line {-n} of {path}")
-    return pats[:n], txts[:n], plens[:n], tlens[:n]
-
-
-def _parse_pairs_mt(lib, path: str, max_pairs: int, read_size: int,
-                    threads: int):
-    """Window-parallel parse: boundary scan + per-window direct parses
-    into disjoint slices of shared output arrays (VERDICT r3 item 9;
-    parse is the host-pipeline floor at ~4.7 cores/chip, PERFNOTES §5)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    step = -(-max_pairs // threads)
-    offs = np.zeros(threads, np.int64)
-    lines = np.zeros(threads, np.int64)
-    total = lib.aim_pair_offsets(path.encode(), step, max_pairs, threads,
-                                 offs, lines)
-    if total == -1000000000:
-        raise FileNotFoundError(path)
-    pats = np.zeros((total, read_size), np.uint8)
-    txts = np.zeros((total, read_size), np.uint8)
-    plens = np.zeros(total, np.int32)
-    tlens = np.zeros(total, np.int32)
-    if total == 0:
-        return pats, txts, plens, tlens
-
-    def work(k):
-        lo = k * step
-        m = min(step, total - lo)
-        if m <= 0:
-            return 0
-        return lib.aim_parse_pairs_at(
-            path.encode(), int(offs[k]), int(lines[k]), m, read_size,
-            pats[lo:lo + m], txts[lo:lo + m], plens[lo:lo + m],
-            tlens[lo:lo + m])
-
-    with ThreadPoolExecutor(threads) as ex:
-        ns = list(ex.map(work, range(threads)))
-    bad = [-nk for nk in ns if nk < 0]
-    if bad:
-        # Each window stops at its own first offender; the smallest line
-        # across windows is the global first — identical message to the
-        # sequential path.
-        raise ValueError(f"read longer than READ_SIZE={read_size} at "
-                         f"line {min(bad)} of {path}")
-    return pats, txts, plens, tlens
+    return tuple(out)
 
 
 def parse_pairs_range(path: str, start_pair: int, max_pairs: int,

@@ -27,6 +27,17 @@
 #include <vector>
 #include <string>
 #include <algorithm>
+#include <atomic>
+#include <climits>
+#include <system_error>
+#include <thread>
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 // ---------------------------------------------------------------------------
 // Common helpers
@@ -34,70 +45,189 @@
 
 static inline long idx2(long i, long j, long stride) { return i * stride + j; }
 
+// Runs run(r) for every r in [0, ranges): r = 0 on this thread, the others
+// on a std::thread each.  Returns the threads that ran (>= 1); where no
+// thread is to be had, this thread runs the ranges left.
+template <class F>
+static int run_ranges(int ranges, const F &run) {
+  std::vector<std::thread> pool;
+  int started = 1;
+  for (; started < ranges; ++started) {
+    try {
+      pool.emplace_back(run, started);
+    } catch (const std::system_error &) {
+      break;
+    }
+  }
+  run(0);
+  for (int r = started; r < ranges; ++r) run(r);
+  for (auto &t : pool) t.join();
+  return started;
+}
+
 // ---------------------------------------------------------------------------
 // Pair-file parser
 //
 // Format: two lines per pair, '>' + pattern, '<' + text
-// (ref: host.c get_reads; Datasets/sample-l100-e1-40K).
-// Packs sequences into [max_pairs, read_size] uint8 row-major buffers
-// (zero-filled tails) and length arrays.  Returns the number of pairs
-// parsed, or -(1+line_index) if a sequence exceeds read_size.
+// (ref: host.c get_reads; Datasets/sample-l100-e1-40K).  The reference's
+// getline rules: a line's length counts its '\n', a last line without
+// one still counts, a sequence is its line less 2 bytes (the sentinel and
+// the '\n', ref: host.c:112-117), a final pattern line without a text
+// line is dropped, and a sequence longer than read_size is fatal at the
+// pair's text line, its global 1-based number.
+//
+// One pass over one read-only map of the file, on the host's cores: the
+// bytes split into `threads` equal ranges; each counts its '\n' bytes,
+// a prefix sum gives each range the global line number at its start,
+// and each then copies the pairs whose pattern line begins in it straight
+// from the map into their rows (pair n is global line 2n, found by its
+// line's parity, never by its sentinel byte).
 // ---------------------------------------------------------------------------
 
-extern "C" long aim_parse_pairs(const char *path, long max_pairs, int read_size,
-                     uint8_t *patterns, uint8_t *texts,
-                     int32_t *pattern_lens, int32_t *text_lens) {
-  FILE *f = std::fopen(path, "rb");
-  if (!f) return -1000000000L;
-  // Slurp the file; datasets are tens of MB, host RAM is plentiful.
-  std::fseek(f, 0, SEEK_END);
-  long fsize = std::ftell(f);
-  std::fseek(f, 0, SEEK_SET);
-  std::vector<char> buf((size_t)fsize);
-  if (fsize > 0 && std::fread(buf.data(), 1, (size_t)fsize, f) != (size_t)fsize) {
-    std::fclose(f);
-    return -1000000001L;
+// '\n' bytes in p[0, n).
+static long count_newlines(const char *p, size_t n) {
+  long c = 0;
+  size_t i = 0;
+#if defined(__SSE2__)
+  const __m128i nl = _mm_set1_epi8('\n'), zero = _mm_setzero_si128();
+  while (n - i >= 16) {
+    // byte counters of up to 255 blocks of 16, then summed
+    const size_t stop = i + 16 * std::min<size_t>((n - i) / 16, 255);
+    __m128i acc = zero;
+    for (; i < stop; i += 16)
+      acc = _mm_sub_epi8(acc, _mm_cmpeq_epi8(
+          _mm_loadu_si128((const __m128i *)(p + i)), nl));
+    const __m128i s = _mm_sad_epu8(acc, zero);
+    c += _mm_extract_epi16(s, 0) + _mm_extract_epi16(s, 4);
   }
-  std::fclose(f);
+#endif
+  for (; i < n; ++i) c += p[i] == '\n';
+  return c;
+}
 
-  long pos = 0, n = 0, line_no = 0;
-  while (n < max_pairs && pos < fsize) {
-    // Pattern line (memchr: the byte-at-a-time scan measured 2x slower,
-    // PERFNOTES.md §5).
-    long start1 = pos;
-    const char *nl1 = (const char *)memchr(buf.data() + pos, '\n',
-                                           (size_t)(fsize - pos));
-    pos = nl1 ? (long)(nl1 - buf.data()) : fsize;
-    long len1 = pos - start1 + (pos < fsize ? 1 : 0);  // getline-style length
-    if (pos < fsize) ++pos;
-    if (len1 <= 0) break;
-    ++line_no;
-    // Text line.
-    if (pos >= fsize) break;
-    long start2 = pos;
-    const char *nl2 = (const char *)memchr(buf.data() + pos, '\n',
-                                           (size_t)(fsize - pos));
-    pos = nl2 ? (long)(nl2 - buf.data()) : fsize;
-    long len2 = pos - start2 + (pos < fsize ? 1 : 0);
-    if (pos < fsize) ++pos;
-    ++line_no;
-    // Strip sentinel char + newline: length - 2 (ref: host.c:112-117).
-    long plen = len1 - 2;
-    long tlen = len2 - 2;
-    if (plen > read_size || tlen > read_size) return -(line_no);
-    if (plen < 0) plen = 0;
-    if (tlen < 0) tlen = 0;
-    // tail-only memset: the head is overwritten by the memcpy (halves
-    // the store traffic; parse is the host-pipeline floor, PERFNOTES §5)
-    std::memset(patterns + n * read_size + plen, 0, (size_t)(read_size - plen));
-    std::memset(texts + n * read_size + tlen, 0, (size_t)(read_size - tlen));
-    std::memcpy(patterns + n * read_size, buf.data() + start1 + 1, (size_t)plen);
-    std::memcpy(texts + n * read_size, buf.data() + start2 + 1, (size_t)tlen);
+// The pairs n < npairs whose pattern line begins in [lo, hi) of the map
+// base[0, len); `line` is the global number of the line holding byte lo.
+// Returns the global line number at which the sequential reading stops,
+// the first offending pair's text line, or LONG_MAX.
+static long parse_rows(const char *base, size_t len, size_t lo, size_t hi,
+                       long line, long npairs, int read_size,
+                       uint8_t *patterns, uint8_t *texts,
+                       int32_t *pattern_lens, int32_t *text_lens) {
+  const char *p = base + lo, *stop = base + hi, *end = base + len;
+  auto next_line = [&](const char *q) {  // past q's '\n', or nullptr
+    const char *nl = (const char *)memchr(q, '\n', (size_t)(end - q));
+    return nl ? nl + 1 : nullptr;
+  };
+  if (lo > 0 && p[-1] != '\n') {  // lo lies inside a line
+    const char *nl = (const char *)memchr(p, '\n', hi - lo);
+    if (!nl) return LONG_MAX;
+    p = nl + 1;
+    ++line;
+  }
+  if (line & 1) {  // a text line: its pair belongs to an earlier range
+    if (p >= stop) return LONG_MAX;
+    p = next_line(p);
+    if (!p) return LONG_MAX;
+    ++line;
+  }
+  for (long n = line / 2; n < npairs && p < stop; ++n) {
+    // n < npairs: line 2n + 1 exists, so the pattern line ends in '\n'
+    const char *t = next_line(p);
+    const char *nl2 = (const char *)memchr(t, '\n', (size_t)(end - t));
+    long plen = (long)(t - p) - 2;
+    long tlen = (long)((nl2 ? nl2 + 1 : end) - t) - 2;
+    if (plen > read_size || tlen > read_size) return 2 * n + 2;
+    plen = std::max(plen, 0L);
+    tlen = std::max(tlen, 0L);
+    uint8_t *rp = patterns + n * read_size, *rt = texts + n * read_size;
+    std::memcpy(rp, p + 1, (size_t)plen);
+    std::memset(rp + plen, 0, (size_t)(read_size - plen));
+    std::memcpy(rt, t + 1, (size_t)tlen);
+    std::memset(rt + tlen, 0, (size_t)(read_size - tlen));
     pattern_lens[n] = (int32_t)plen;
     text_lens[n] = (int32_t)tlen;
-    ++n;
+    p = nl2 ? nl2 + 1 : end;
   }
-  return n;
+  return LONG_MAX;
+}
+
+// Allocates the outputs for n pairs: sets out[0..3] to the patterns and
+// texts ([n, read_size] bytes) and the pattern and text lengths ([n]
+// int32) and returns 0, or returns nonzero.
+typedef int (*parse_alloc_fn)(long n, void **out);
+
+// Parses up to max_pairs pairs with `threads` ranges.  Returns the pairs
+// parsed, -(line) at a sequence longer than read_size, -1000000000 if the
+// file cannot be opened, -1000000001 if it cannot be mapped, -1000000002
+// if alloc fails.
+extern "C" long aim_parse_pairs_par(const char *path, long max_pairs,
+                                    int read_size, int threads,
+                                    parse_alloc_fn alloc) {
+  const int fd = open(path, O_RDONLY);
+  if (fd < 0) return -1000000000L;
+  struct stat st;
+  if (fstat(fd, &st) != 0) {
+    close(fd);
+    return -1000000001L;
+  }
+  const size_t fsize = (size_t)st.st_size;
+  const int ranges = std::max(threads, 1);
+  // Valid pairs take at most 2 * (read_size + 2) bytes each, so the
+  // first max_pairs of them lie in this prefix; the whole file is mapped
+  // only where the prefix holds fewer lines than they need.
+  size_t len = std::min(
+      fsize, (size_t)std::max(std::min(max_pairs, (long)fsize), 0L) * 2 *
+                 (size_t)(read_size + 2));
+  const char *base = nullptr;
+  std::vector<long> lines(ranges + 1, 0);  // '\n' bytes before each range
+  auto bound = [&](int r) { return len * r / ranges; };
+  auto map_count = [&]() {
+    void *m = mmap(nullptr, len, PROT_READ, MAP_PRIVATE | MAP_POPULATE, fd, 0);
+    if (m == MAP_FAILED) return false;
+    base = (const char *)m;
+    run_ranges(ranges, [&](int r) {
+      lines[r + 1] = count_newlines(base + bound(r), bound(r + 1) - bound(r));
+    });
+    for (int r = 0; r < ranges; ++r) lines[r + 1] += lines[r];
+    return true;
+  };
+  long npairs = 0;
+  if (len > 0) {
+    if (!map_count()) {
+      close(fd);
+      return -1000000001L;
+    }
+    if (len < fsize && lines[ranges] < 2 * max_pairs) {
+      munmap((void *)base, len);
+      len = fsize;
+      if (!map_count()) {
+        close(fd);
+        return -1000000001L;
+      }
+    }
+    npairs = max_pairs;
+    if (len == fsize)  // a last line without '\n' counts
+      npairs = std::min(npairs,
+                        (lines[ranges] + (base[len - 1] != '\n')) / 2);
+  }
+  long result = npairs;
+  void *out[4];
+  if (alloc(npairs, out) != 0) {
+    result = -1000000002L;
+  } else if (npairs > 0) {
+    std::vector<long> first(ranges);
+    run_ranges(ranges, [&](int r) {
+      first[r] = parse_rows(base, len, bound(r), bound(r + 1), lines[r],
+                            npairs, read_size, (uint8_t *)out[0],
+                            (uint8_t *)out[1], (int32_t *)out[2],
+                            (int32_t *)out[3]);
+    });
+    const long bad = *std::min_element(first.begin(), first.end());
+    if (bad != LONG_MAX) result = -bad;
+  }
+  if (base) munmap((void *)base, len);
+  close(fd);
+  return result;
 }
 
 // ---------------------------------------------------------------------------
@@ -110,7 +240,7 @@ extern "C" long aim_parse_pairs(const char *path, long max_pairs, int read_size,
 // parsed into the caller's buffers.  Semantics (getline-style lengths,
 // sentinel strip, fatal READ_SIZE reject with GLOBAL line number, pair
 // dropped when the text line is missing) are identical to
-// aim_parse_pairs above.
+// aim_parse_pairs_par above.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -188,9 +318,9 @@ extern "C" long aim_count_pairs(const char *path, long max_pairs) {
   return n;
 }
 
-// Shared parse loop over an already-positioned reader; line_no is the
+// The parse loop over an already-positioned reader; line_no is the
 // global 0-based line count at the reader's position (fatal READ_SIZE
-// line numbers stay global).  Semantics identical to aim_parse_pairs.
+// line numbers stay global).  Semantics identical to aim_parse_pairs_par.
 static long parse_window(LineReader &r, long line_no, long max_pairs,
                          int read_size, uint8_t *patterns, uint8_t *texts,
                          int32_t *pattern_lens, int32_t *text_lens) {
@@ -208,7 +338,7 @@ static long parse_window(LineReader &r, long line_no, long max_pairs,
     ++line_no;
     long len2 = (long)r.line.size() + (nl2 ? 1 : 0);
     // Checks deferred until both lines are read so the fatal line number
-    // matches aim_parse_pairs (it reports after consuming the pair).
+    // is the pair's text line, as in aim_parse_pairs_par.
     long plen = len1 - 2;
     long tlen = len2 - 2;
     if (plen > read_size || tlen > read_size) return -(line_no);
@@ -242,62 +372,6 @@ extern "C" long aim_parse_pairs_range(const char *path, long start_pair,
   }
   long n = parse_window(r, line_no, max_pairs, read_size, patterns, texts,
                         pattern_lens, text_lens);
-  std::fclose(f);
-  return n;
-}
-
-// Byte offsets (and global 0-based line numbers) of pairs k*step,
-// k = 0..n_offsets-1, via one streaming newline scan — the boundary
-// pass for intra-process parallel parsing: each worker thread then
-// parses its window directly with aim_parse_pairs_at (no per-thread
-// re-scan of the file head).  Scans at most max_pairs pairs; returns
-// the number of complete pairs seen (the aim_count_pairs rules).
-extern "C" long aim_pair_offsets(const char *path, long step, long max_pairs,
-                                 long n_offsets, int64_t *offsets_out,
-                                 int64_t *lines_out) {
-  FILE *f = std::fopen(path, "rb");
-  if (!f) return -1000000000L;
-  LineReader r(f);
-  long n = 0;
-  int64_t byte_off = 0;
-  long line_no = 0;
-  while (n < max_pairs) {
-    if (step > 0 && n % step == 0 && n / step < n_offsets) {
-      offsets_out[n / step] = byte_off;
-      lines_out[n / step] = line_no;
-    }
-    bool nl;
-    long len;
-    if (!r.skip(&nl, &len)) break;          // EOF, nothing read
-    if (len + (nl ? 1 : 0) <= 0) break;     // getline-style empty
-    byte_off += len + (nl ? 1 : 0);
-    ++line_no;
-    if (!r.skip(&nl, &len)) break;          // pattern without text: drop
-    byte_off += len + (nl ? 1 : 0);
-    ++line_no;
-    ++n;
-  }
-  std::fclose(f);
-  return n;
-}
-
-// Parse up to max_pairs pairs starting at a pair-aligned byte offset
-// (from aim_pair_offsets); start_line is the global line count there so
-// fatal READ_SIZE line numbers match the sequential parser exactly.
-extern "C" long aim_parse_pairs_at(const char *path, int64_t byte_offset,
-                                   long start_line, long max_pairs,
-                                   int read_size, uint8_t *patterns,
-                                   uint8_t *texts, int32_t *pattern_lens,
-                                   int32_t *text_lens) {
-  FILE *f = std::fopen(path, "rb");
-  if (!f) return -1000000000L;
-  if (byte_offset > 0 && std::fseek(f, (long)byte_offset, SEEK_SET) != 0) {
-    std::fclose(f);
-    return 0;
-  }
-  LineReader r(f);
-  long n = parse_window(r, start_line, max_pairs, read_size, patterns,
-                        texts, pattern_lens, text_lens);
   std::fclose(f);
   return n;
 }
@@ -1281,13 +1355,6 @@ extern "C" long aim_emit_output(const char *path, const int32_t *idx,
 // against text bytes for equality).
 // ---------------------------------------------------------------------------
 
-#include <atomic>
-#include <system_error>
-#include <thread>
-#if defined(__SSE2__)
-#include <emmintrin.h>
-#endif
-
 static inline bool is_acgt(uint8_t c) {
   return (c == 'A') | (c == 'C') | (c == 'G') | (c == 'T');
 }
@@ -1447,18 +1514,7 @@ extern "C" int aim_pack_seqs(const uint8_t *pats, const uint8_t *txts,
                     std::min(n, (r + 1) * step), read_size, rb, out_p,
                     out_t, &flagged);
   };
-  std::vector<std::thread> pool;
-  int started = 1;
-  for (; started < ranges; ++started) {
-    try {
-      pool.emplace_back(run, started);
-    } catch (const std::system_error &) {
-      break;  // no thread to be had: this thread takes the rest
-    }
-  }
-  run(0);
-  for (int r = started; r < ranges; ++r) run(r);
-  for (auto &t : pool) t.join();
+  const int started = run_ranges(ranges, run);
   if (!flagged.load()) return started;
   return pack_seqs_lut(pats, txts, plens, tlens, n, read_size, rb, out_p,
                        out_t) ? 0 : -1;

@@ -52,6 +52,7 @@ COUNTERS = (
     "d2h_bytes",  # the wave loop's records
     "decode_threads",  # threads that decoded the call's CIGARs, 0 if none
     "pack_threads",    # threads of the fused ACGT pack pass, 0 if none
+    "parse_threads",   # threads of the parse pass over the mapped file
     "flagged_pairs",   # pairs the primary tier flagged
     "retry_pairs",     # flagged pairs a wider band of the ladder certified
     "fallback_pairs",  # flagged pairs the exact host oracle computed

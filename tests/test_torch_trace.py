@@ -52,6 +52,8 @@ def test_align_file_fills_its_stages(tmp_path):
         "decode_threads": 1,
         # 1,000 pairs of 224 bytes: below the pack pass's thread minimum
         "pack_threads": 1,
+        # the sample's ~200 KB: below the parse pass's thread minimum
+        "parse_threads": 1,
         # K1 flags no pair, so the ladder and the oracle take none
         "flagged_pairs": 0, "retry_pairs": 0, "fallback_pairs": 0}
 
