@@ -189,6 +189,10 @@ def align(pats, txts, plens, tlens, cfg: AlignConfig,
             raise ValueError(
                 f"sequence longer than read_size={cfg.read_size}")
         res = _align_impl(pats, txts, plens, tlens, cfg, devs)
+        if cfg.algo == ALGO_GENASM:
+            # on the final scores, so that every GenASM tier counts alike
+            spans.count("over_k_pairs", int(np.count_nonzero(
+                res.scores > cfg.max_score)))
         sec = rec.seconds
         res.t_load = sec["upload"]
         res.t_kernel = sec["kernel"]

@@ -56,6 +56,7 @@ COUNTERS = (
     "flagged_pairs",   # pairs the primary tier flagged
     "retry_pairs",     # flagged pairs a wider band of the ladder certified
     "fallback_pairs",  # flagged pairs the exact host oracle computed
+    "over_k_pairs",    # GenASM pairs past k, scored k + 1, walked by none
 )
 ENTRIES = ("align", "align_file", "cli")
 CAPACITY = 16384

@@ -55,7 +55,9 @@ def test_align_file_fills_its_stages(tmp_path):
         # the sample's ~200 KB: below the parse pass's thread minimum
         "parse_threads": 1,
         # K1 flags no pair, so the ladder and the oracle take none
-        "flagged_pairs": 0, "retry_pairs": 0, "fallback_pairs": 0}
+        "flagged_pairs": 0, "retry_pairs": 0, "fallback_pairs": 0,
+        # a WFA call: the GenASM counter stays 0
+        "over_k_pairs": 0}
 
 
 def test_phase_fields_are_their_stages(tmp_path, capsys):
@@ -222,6 +224,28 @@ def test_device_log_reads_retry_and_fallback(tmp_path):
         assert float(fields[f"{s}_s"]) == pytest.approx(
             res.spans.seconds[s], abs=1e-6)
     assert float(fields["retry_s"]) > 0 and float(fields["fallback_s"]) > 0
+    for c in spans.COUNTERS:
+        assert int(fields[c]) == res.spans.counts[c]
+
+
+@pytest.mark.parametrize("error,over", [(0.01, False), (0.1, True)],
+                         ids=["within_k", "past_k"])
+def test_device_log_reads_over_k_pairs(tmp_path, error, over):
+    """GenASM at k = 2 on one edit a pair walks every pair; at ten, most
+    pass k: the device log and the ring carry the pairs scored k + 1."""
+    src = str(tmp_path / "pairs")
+    datagen.write_pair_file(src, 64, 100, error, seed=4)
+    cfg = derive_config("genasm", 100, 0.01, backtrace=True)
+    log = tmp_path / "dev.log"
+    res = tapi.align_file(src, str(tmp_path / "o"), 64, cfg, device="cpu",
+                          verbose=False, device_log=str(log))
+    n_over = int((res.scores > cfg.max_score).sum())
+    assert (n_over > 0) is over
+    fields = dict(f.split("=", 1)
+                  for f in log.read_text().split("|", 1)[1].split())
+    assert int(fields["over_k_pairs"]) == n_over
+    assert res.spans.counts["over_k_pairs"] == n_over
+    assert spans.calls()[-1]["over_k_pairs"] == n_over
     for c in spans.COUNTERS:
         assert int(fields[c]) == res.spans.counts[c]
 
