@@ -348,7 +348,9 @@ def _decode_pass(grammar, chunks, cfg: AlignConfig, plens, tlens, scores,
     expander straight into their rows of ``scores``/``ops``/``begin``/
     ``end``, the ranges on a thread pool of the call (ctypes drops the
     GIL) or, at one, on this thread.  Returns the threads that decoded
-    CIGARs: 0 without backtrace, where only scores are copied."""
+    CIGARs: 0 without backtrace, where only scores are copied.  Counts the
+    step records' ``decode_skipped_rows`` and ``decode_clamped_pairs``
+    (``native.wfa_steps_to_ops``'s ``stats``), summed over the ranges."""
     if grammar == kernels.PACKED_RUNS:
         col = 1
     else:
@@ -374,6 +376,7 @@ def _decode_pass(grammar, chunks, cfg: AlignConfig, plens, tlens, scores,
     ranges = [part for part in ranges if part]
 
     def run(part):
+        stats = {}
         for lo, hi, r in part:
             if grammar == kernels.PACKED_RUNS:
                 scores[lo:hi] = r[:, col]
@@ -386,13 +389,16 @@ def _decode_pass(grammar, chunks, cfg: AlignConfig, plens, tlens, scores,
                     r, plens[lo:hi], tlens[lo:hi], max_score=levels,
                     max_ops=max_ops,
                     out=(scores[lo:hi], ops[lo:hi], begin[lo:hi],
-                         end[lo:hi]))
+                         end[lo:hi]), stats=stats)
+        return stats
 
     if len(ranges) == 1:
-        run(ranges[0])
+        done = [run(ranges[0])]
     else:
         with ThreadPoolExecutor(len(ranges)) as ex:
-            list(ex.map(run, ranges))
+            done = list(ex.map(run, ranges))
+    for key in ("skipped_rows", "clamped_pairs"):
+        spans.count("decode_" + key, sum(st.get(key, 0) for st in done))
     return len(ranges)
 
 

@@ -29,6 +29,7 @@ _i8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _i16p = np.ctypeslib.ndpointer(dtype=np.int16, flags="C_CONTIGUOUS")
 _i16pv = np.ctypeslib.ndpointer(dtype=np.int16)  # strided views OK
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _chp = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")  # char*
 # parse_pairs' allocator, called once from inside the parse with the pair
 # count: fills out[0:4] with the outputs' addresses and returns 0, or
@@ -134,7 +135,7 @@ def load():
         lib.aim_wfa_steps_to_ops.restype = None
         lib.aim_wfa_steps_to_ops.argtypes = [
             _i32p, ctypes.c_long, _i32p, _i32p, ctypes.c_long,
-            ctypes.c_int, ctypes.c_int, _chp, _i32p, _i32p, _i32p,
+            ctypes.c_int, ctypes.c_int, _chp, _i32p, _i32p, _i32p, _i64p,
         ]
         lib.aim_pack_seqs.restype = ctypes.c_int
         lib.aim_pack_seqs.argtypes = [
@@ -506,19 +507,26 @@ def wfa_runs_to_ops(runs, scores, plens, tlens, *, max_score, max_ops,
 
 
 def wfa_steps_to_ops(records, plens, tlens, *, max_score, max_ops,
-                     out=None):
-    """Expand the v2 kernel's per-score-level step records ([n, SR] i32,
-    see ops/wfa_pallas2.py) into the reference ops buffers.  Returns
-    (scores, ops, begin, end), written into ``out`` when it is given;
-    scores come from the record's score row."""
+                     out=None, stats=None):
+    """Expand the step records ([n, SR] i32: K1, K5, and K4 with
+    max_score = read_size; see oracle.cpp aim_wfa_steps_to_ops) into the
+    reference ops buffers.  Returns (scores, ops, begin, end), written into
+    ``out`` when it is given; scores come from the record's score row.
+    With a dict ``stats``, adds to its ``skipped_rows`` (level rows only
+    stepped over) and ``clamped_pairs`` (pairs whose runs overran their
+    row, expanded clamped)."""
     lib = load()
     records = np.ascontiguousarray(records, np.int32)
     n, sr = records.shape
     plens = np.ascontiguousarray(plens, np.int32)
     tlens = np.ascontiguousarray(tlens, np.int32)
     scores, ops, begin, end = _decoded(out, n, max_ops, with_scores=True)
+    got = np.zeros(2, np.int64)
     lib.aim_wfa_steps_to_ops(records, sr, plens, tlens, n,
-                             max_score, max_ops, ops, scores, begin, end)
+                             max_score, max_ops, ops, scores, begin, end, got)
+    if stats is not None:
+        for key, v in zip(("skipped_rows", "clamped_pairs"), got):
+            stats[key] = stats.get(key, 0) + int(v)
     return scores, ops, begin, end
 
 

@@ -1193,7 +1193,7 @@ extern "C" void aim_genasm_align(const uint8_t *patterns, const uint8_t *texts,
 }
 
 // ---------------------------------------------------------------------------
-// Step-record expansion for the Pallas v2 WFA kernel (ops/wfa_pallas2.py).
+// Step-record expansion for the step-record kernels (K1, K5, K4).
 // records[i]: rows 0..max_score = per-score-level step records emitted by
 // the on-device backtrace in DESCENDING score order (gap | match stroke |
 // op per level), rows max_score+1 / max_score+2 = final strokes, row
@@ -1204,17 +1204,159 @@ extern "C" void aim_genasm_align(const uint8_t *patterns, const uint8_t *texts,
 // (ref: WFA/DPU-MRAM/dpu/wfa_backtracing.c:219-375, host.c:332-353).
 // Record encoding: bits 0..13 match-stroke len, 14..15 op (0 none,
 // 1 X, 2 I, 3 D), 16..26 trailing-gap len, 27 trailing-gap-is-D.
+//
+// One pass from the right over the 'M'-filled row: pos starts at
+// plen + tlen; levels max_score..0 write their gap run, step over their
+// match stroke with no write, and write their op byte; then fin1, then
+// fin2; begin is where pos ends.  A level with no op and no gap (empty
+// or match-only: every GenASM text position but the edits, K1's
+// match-only levels) only moves pos, four levels a 16-byte load where
+// four in a row are such (SSE2).  A record whose runs do not fit its row
+// (their sum past plen + tlen, or plen + tlen past max_ops) is caught
+// before any byte left of the row's start is written, and re-expanded
+// from a fresh row by steps_to_ops_clamped, the left-to-right expansion
+// that clamps every run into the row.  stats[0] += the levels only
+// stepped over, stats[1] += the pairs re-expanded clamped.
 // ---------------------------------------------------------------------------
+
+static const char STEP_OPC[4] = {'M', 'X', 'I', 'D'};
+
+// The clamped expansion: every run in left-to-right order, from
+// pos = plen + tlen - (sum of the runs) clamped to [0, max_ops], each run
+// cut at the row's end.  Returns begin.
+static int steps_to_ops_clamped(const int32_t *r, int max_score,
+                                int max_operations, int max_ops, char *o,
+                                std::vector<char> &runs_op,
+                                std::vector<int> &runs_len) {
+  std::memset(o, 'M', (size_t)max_ops);
+  runs_op.clear();
+  runs_len.clear();
+  int fin2 = r[max_score + 2];  // final I stroke (leftmost)
+  if (fin2 & 0x3FFF) {
+    runs_op.push_back(STEP_OPC[(fin2 >> 14) & 3]);
+    runs_len.push_back(fin2 & 0x3FFF);
+  }
+  int fin1 = r[max_score + 1];  // final D or M stroke
+  if (fin1 & 0x3FFF) {
+    runs_op.push_back(STEP_OPC[(fin1 >> 14) & 3]);
+    runs_len.push_back(fin1 & 0x3FFF);
+  }
+  for (int s = 0; s <= max_score; ++s) {
+    int rec = r[s];
+    if (!rec) continue;
+    int op = (rec >> 14) & 3;
+    if (op) {
+      runs_op.push_back(STEP_OPC[op]);
+      runs_len.push_back(1);
+    }
+    int mlen = rec & 0x3FFF;
+    if (mlen) {
+      runs_op.push_back('M');
+      runs_len.push_back(mlen);
+    }
+    int glen = (rec >> 16) & 0x7FF;
+    if (glen) {
+      runs_op.push_back((rec >> 27) & 1 ? 'D' : 'I');
+      runs_len.push_back(glen);
+    }
+  }
+  long total = 0;
+  for (int len : runs_len) total += len;
+  int pos = max_operations - (int)total;
+  if (pos < 0) pos = 0;
+  if (pos > max_ops) pos = max_ops;
+  const int begin = pos;
+  for (size_t j = 0; j < runs_op.size(); ++j) {
+    int len = runs_len[j];
+    if (len > max_ops - pos) len = max_ops - pos;
+    std::memset(o + pos, runs_op[j], (size_t)len);
+    pos += len;
+  }
+  return begin;
+}
+
+// The right-to-left pass over one pair's records into its 'M'-filled row.
+// Returns begin, or -1 where the runs do not fit the row (nothing is then
+// written left of the row's start; the caller re-expands it clamped).
+// *skipped gets the levels only stepped over.
+static inline long steps_to_ops_row(const int32_t *r, int max_score,
+                                    int max_operations, int max_ops,
+                                    char *o, long *skipped) {
+  const int32_t NOT_M = ~0x3FFF;  // op, gap and flag bits
+  if (max_operations > max_ops) return -1;
+  long pos = max_operations, passed = 0;
+  int s = max_score;
+#if defined(__SSE2__)
+  // strokes of whole match-only blocks, summed into pos before a write
+  const __m128i notm = _mm_set1_epi32(NOT_M), zero = _mm_setzero_si128();
+  __m128i pending = zero;
+  auto settle = [&]() {
+    __m128i t = _mm_add_epi32(pending, _mm_shuffle_epi32(pending, 0x4E));
+    t = _mm_add_epi32(t, _mm_shuffle_epi32(t, 0xB1));
+    pos -= _mm_cvtsi128_si32(t);
+    pending = zero;
+  };
+#endif
+  while (s >= 0) {
+#if defined(__SSE2__)
+    if (s >= 3) {
+      const __m128i v = _mm_loadu_si128((const __m128i *)(r + s - 3));
+      if (_mm_movemask_epi8(_mm_cmpeq_epi32(_mm_and_si128(v, notm),
+                                            zero)) == 0xFFFF) {
+        pending = _mm_add_epi32(pending, v);
+        passed += 4;
+        s -= 4;
+        continue;
+      }
+    }
+    settle();
+#endif
+    const int32_t rec = r[s--];
+    if ((rec & NOT_M) == 0) {
+      pos -= rec;
+      ++passed;
+      continue;
+    }
+    const long glen = (rec >> 16) & 0x7FF;
+    if (glen) {
+      if (glen > pos) return -1;
+      pos -= glen;
+      std::memset(o + pos, (rec >> 27) & 1 ? 'D' : 'I', (size_t)glen);
+    }
+    pos -= rec & 0x3FFF;
+    const int op = (rec >> 14) & 3;
+    if (op) {
+      if (pos < 1) return -1;
+      o[--pos] = STEP_OPC[op];
+    }
+  }
+#if defined(__SSE2__)
+  settle();
+#endif
+  for (int f = 1; f <= 2; ++f) {  // fin1 (final D or M), fin2 (final I)
+    const int32_t fin = r[max_score + f];
+    const long len = fin & 0x3FFF;
+    const int op = (fin >> 14) & 3;
+    if (op && len) {
+      if (len > pos) return -1;
+      std::memset(o + pos - len, STEP_OPC[op], (size_t)len);
+    }
+    pos -= len;
+  }
+  if (pos < 0) return -1;
+  *skipped += passed;
+  return pos;
+}
 
 extern "C" void aim_wfa_steps_to_ops(const int32_t *records, long sr,
                                      const int32_t *plens,
                                      const int32_t *tlens, long n,
                                      int max_score, int max_ops, char *ops,
                                      int32_t *scores_out, int32_t *begin_off,
-                                     int32_t *end_off) {
-  static const char OPC[4] = {'M', 'X', 'I', 'D'};
+                                     int32_t *end_off, int64_t *stats) {
   std::vector<char> runs_op;
   std::vector<int> runs_len;
+  long skipped = 0, clamped = 0;
   for (long i = 0; i < n; ++i) {
     char *o = ops + i * max_ops;
     std::memset(o, 'M', (size_t)max_ops);
@@ -1224,53 +1366,21 @@ extern "C" void aim_wfa_steps_to_ops(const int32_t *records, long sr,
     const int max_operations = plens[i] + tlens[i];
     int begin = max_operations - 1;
     if (score <= max_score) {
-      runs_op.clear();
-      runs_len.clear();
-      int fin2 = r[max_score + 2];  // final I stroke (leftmost)
-      if (fin2 & 0x3FFF) {
-        runs_op.push_back(OPC[(fin2 >> 14) & 3]);
-        runs_len.push_back(fin2 & 0x3FFF);
-      }
-      int fin1 = r[max_score + 1];  // final D or M stroke
-      if (fin1 & 0x3FFF) {
-        runs_op.push_back(OPC[(fin1 >> 14) & 3]);
-        runs_len.push_back(fin1 & 0x3FFF);
-      }
-      for (int s = 0; s <= max_score; ++s) {
-        int rec = r[s];
-        if (!rec) continue;
-        int op = (rec >> 14) & 3;
-        if (op) {
-          runs_op.push_back(OPC[op]);
-          runs_len.push_back(1);
-        }
-        int mlen = rec & 0x3FFF;
-        if (mlen) {
-          runs_op.push_back('M');
-          runs_len.push_back(mlen);
-        }
-        int glen = (rec >> 16) & 0x7FF;
-        if (glen) {
-          runs_op.push_back((rec >> 27) & 1 ? 'D' : 'I');
-          runs_len.push_back(glen);
-        }
-      }
-      long total = 0;
-      for (int len : runs_len) total += len;
-      int pos = max_operations - (int)total;
-      if (pos < 0) pos = 0;
-      if (pos > max_ops) pos = max_ops;
-      begin = pos;
-      for (size_t j = 0; j < runs_op.size(); ++j) {
-        int len = runs_len[j];
-        if (len > max_ops - pos) len = max_ops - pos;
-        std::memset(o + pos, runs_op[j], (size_t)len);
-        pos += len;
+      const long pos = steps_to_ops_row(r, max_score, max_operations,
+                                        max_ops, o, &skipped);
+      if (pos >= 0) {
+        begin = (int)pos;
+      } else {
+        ++clamped;
+        begin = steps_to_ops_clamped(r, max_score, max_operations, max_ops,
+                                     o, runs_op, runs_len);
       }
     }
     begin_off[i] = begin;
     end_off[i] = max_operations;
   }
+  stats[0] += skipped;
+  stats[1] += clamped;
 }
 
 // ---------------------------------------------------------------------------

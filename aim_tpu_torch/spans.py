@@ -57,6 +57,8 @@ COUNTERS = (
     "retry_pairs",     # flagged pairs a wider band of the ladder certified
     "fallback_pairs",  # flagged pairs the exact host oracle computed
     "over_k_pairs",    # GenASM pairs past k, scored k + 1, walked by none
+    "decode_skipped_rows",   # step-record level rows decoded with no write
+    "decode_clamped_pairs",  # step records that overran their row, clamped
 )
 ENTRIES = ("align", "align_file", "cli")
 CAPACITY = 16384

@@ -15,8 +15,9 @@ import pytest
 from aim_tpu_torch import api as tapi
 from aim_tpu_torch import datagen, native, spans
 from aim_tpu_torch.cli import build_parser, config_from_args
-from aim_tpu_torch.config import derive_config
+from aim_tpu_torch.config import AlignConfig, derive_config
 from aim_tpu_torch.ops import kernels
+from torch_cases import step_decode_case, step_stats
 
 WFA = derive_config("wfa", 100, 0.01, backtrace=True, adaptive=True)
 
@@ -268,3 +269,46 @@ def test_decode_threads_zero_without_cigars():
     np.testing.assert_array_equal(
         tapi.align(p, t, pl, tl, WFA.replace(backtrace=False),
                    "cpu").scores, with_bt.scores)
+
+
+# ---- the step-record expander's counters ----------------------------------
+
+def test_genasm_call_counts_skipped_rows(monkeypatch):
+    """GenASM at 100 bp, k = 2, one edit a pair: one level row a text
+    position, nearly all match-only.  The call's counters read the
+    grammar's counts on the records the pass saw: at least 90 % of the
+    level rows stepped over with no write, no pair clamped."""
+    cfg = _cfg(FAMILIES["genasm100"][0]).replace(batch_pairs=64)
+    R = cfg.read_size
+    p, t, pl, tl = _pairs(cfg, 200, 100, 0.01)
+    seen = _captured(monkeypatch, p, t, pl, tl, cfg)
+    counts = spans.calls()[-1]
+    rec = np.concatenate([r for _, r in seen["chunks"]])
+    want = step_stats(rec, seen["plens"], seen["tlens"], R, 2 * R)
+    assert counts["decode_skipped_rows"] == want["skipped_rows"]
+    assert counts["decode_clamped_pairs"] == want["clamped_pairs"] == 0
+    level_rows = int((rec[:, R + 3] <= R).sum()) * (R + 1)
+    assert counts["decode_skipped_rows"] >= 0.9 * level_rows
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_pass_counts_clamped_pairs_exactly(threads):
+    """Random step records, some overrunning their rows, in two chunks:
+    the ranges' counts sum to the grammar's, clamped pairs exactly."""
+    rec, pl, tl, levels, max_ops = step_decode_case("random_overrun")
+    cfg = AlignConfig(algo="wfa", read_size=max_ops // 2, max_score=levels,
+                      backtrace=True)
+    n = len(pl)
+    out = (np.zeros(n, np.int32), np.zeros((n, max_ops), np.uint8),
+           np.zeros(n, np.int32), np.zeros(n, np.int32))
+    chunks = [(0, rec[:150]), (150, rec[150:])]
+    with spans.call("align", n) as call:
+        used = tapi._decode_pass(kernels.STEP_RECORDS, chunks, cfg, pl, tl,
+                                 *out, threads)
+    assert used == threads
+    want = step_stats(rec, pl, tl, levels, max_ops)
+    assert want["clamped_pairs"] > 0
+    assert call.counts["decode_clamped_pairs"] == want["clamped_pairs"]
+    assert call.counts["decode_skipped_rows"] == want["skipped_rows"]
+    _assert_equal(out, native.wfa_steps_to_ops(rec, pl, tl, max_score=levels,
+                                               max_ops=max_ops))

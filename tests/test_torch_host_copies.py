@@ -22,6 +22,7 @@ import aim_tpu_torch.native as tnat
 from aim_tpu_torch import cli as tcli
 from aim_tpu_torch import config as tconfig
 from aim_tpu_torch import datagen as tdatagen
+from torch_cases import STEP_DECODE_CASES, step_decode_case, step_stats
 from util import pack, random_pairs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -203,15 +204,51 @@ def test_native_run_decoders_match_reference(NRL):
         np.testing.assert_array_equal(x, y)
 
 
-def test_native_step_decoder_matches_reference():
-    from aim_tpu_torch.ops import wfa2
-    from torch_cases import case, torch_records
-    cfg, p, t, pl, tl, packed = case("main_bt")
-    rec = torch_records(wfa2.wfa2_reference, cfg, p, t, pl, tl, packed)
-    for smax in (cfg.max_score,):
-        a = tnat.wfa_steps_to_ops(rec, pl, tl, max_score=smax,
-                                  max_ops=2 * cfg.read_size)
-        b = jnat.wfa_steps_to_ops(rec, pl, tl, max_score=smax,
-                                  max_ops=2 * cfg.read_size)
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(x, y)
+@pytest.mark.parametrize("name", STEP_DECODE_CASES)
+def test_native_step_decoder_matches_reference(name):
+    """The port's right-to-left expander against the JAX package's, byte
+    for byte: K1's and K4's records (GenASM's one level row a text
+    position, over-k pairs included), K5-length strokes and gaps, and
+    random records of which some overrun their rows (the clamped
+    expansion); its stats as the grammar says."""
+    rec, pl, tl, levels, max_ops = step_decode_case(name)
+    stats = {}
+    a = tnat.wfa_steps_to_ops(rec, pl, tl, max_score=levels, max_ops=max_ops,
+                              stats=stats)
+    b = jnat.wfa_steps_to_ops(rec, pl, tl, max_score=levels, max_ops=max_ops)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert stats == step_stats(rec, pl, tl, levels, max_ops)
+    assert (stats["clamped_pairs"] > 0) is (name == "random_overrun")
+
+
+def test_native_step_decoder_malformed_records():
+    """The port's expander on garbage step records (oversized strokes,
+    gaps past the row, huge final strokes, a score past smax): every
+    write in bounds, the bytes of the JAX package's expander, and each
+    overrunning pair (0-2; pair 3 is past smax and not walked) sent
+    through the clamped expansion."""
+    n, smax, R = 4, 5, 16
+    recs = np.zeros((n, smax + 4), np.int32)
+    pl = np.full(n, 10, np.int32)
+    tl = np.full(n, 10, np.int32)
+    recs[0, :smax + 1] = 0x3FFF
+    recs[0, smax + 3] = 3
+    recs[1, :smax + 1] = (0x7FF << 16) | (1 << 27) | (1 << 14)
+    recs[1, smax + 3] = 2
+    recs[2, smax + 1] = 0x3FFF | (3 << 14)
+    recs[2, smax + 2] = 0x3FFF | (2 << 14)
+    recs[3, smax + 3] = smax + 1
+    stats = {}
+    got = tnat.wfa_steps_to_ops(recs, pl, tl, max_score=smax, max_ops=2 * R,
+                                stats=stats)
+    want = jnat.wfa_steps_to_ops(recs, pl, tl, max_score=smax, max_ops=2 * R)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    sc, ops, b, e = got
+    assert ops.shape == (n, 2 * R)
+    assert (b >= 0).all() and (b <= 2 * R).all()
+    assert (e == pl + tl).all()
+    assert sc[3] == smax + 1
+    assert ops[3, b[3]:e[3]].tobytes() == b"M"
+    assert stats == {"skipped_rows": 0, "clamped_pairs": 3}

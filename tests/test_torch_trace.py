@@ -16,6 +16,7 @@ import torch
 from aim_tpu_torch import api as tapi
 from aim_tpu_torch import datagen, spans
 from aim_tpu_torch.config import derive_config
+from aim_tpu_torch.ops import wfa2
 from aim_tpu_torch.ops.common import pack_seqs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,6 +44,12 @@ def test_align_file_fills_its_stages(tmp_path):
     p, t, pl, tl = native.parse_pairs(SAMPLE, N_SAMPLE, WFA.read_size)
     up_p, up_t, packed = pack_seqs(p, t, pl, tl, WFA.read_size)
     assert packed
+    # K1's level rows with no op and no gap, of the pairs within smax
+    steps = wfa2.wfa2_reference(
+        *(torch.from_numpy(a) for a in (up_p, up_t, pl, tl)), cfg=WFA,
+        packed=True).numpy()
+    smax = WFA.max_score
+    walked = steps[steps[:, smax + 3] <= smax, :smax + 1].view(np.uint32)
     assert rec.counts == {
         "chunks": 1,
         "h2d_bytes": up_p.nbytes + up_t.nbytes + pl.nbytes + tl.nbytes,
@@ -57,7 +64,11 @@ def test_align_file_fills_its_stages(tmp_path):
         # K1 flags no pair, so the ladder and the oracle take none
         "flagged_pairs": 0, "retry_pairs": 0, "fallback_pairs": 0,
         # a WFA call: the GenASM counter stays 0
-        "over_k_pairs": 0}
+        "over_k_pairs": 0,
+        # the expander steps over every match-only level and clamps none
+        "decode_skipped_rows": int(np.count_nonzero(
+            (walked & 0xFFFFC000) == 0)),
+        "decode_clamped_pairs": 0}
 
 
 def test_phase_fields_are_their_stages(tmp_path, capsys):

@@ -831,3 +831,107 @@ DENSE_CASES = {
 def dense_batch(R, alphabet, n=64, seed=17):
     return pack(random_pairs(seed=seed, n=n, max_len=R - 8, balanced=False,
                              alphabet=alphabet), R)
+
+
+# ---- step records for the native expander (K1, K5 and K4 share them) ----
+
+STEP_DECODE_CASES = ["k1_main_bt", "k4_main_bt", "k4_overflow_bt",
+                     "k5_long_strokes", "random_overrun"]
+
+
+def _long_step_pair(rng, levels, budget):
+    """One pair's level rows and final strokes, long strokes and gaps, its
+    runs summing to at most ``budget``: (rows, fin1, fin2, runs' sum)."""
+    rows = np.zeros(levels + 1, np.int32)
+    total = 0
+    for s in range(int(rng.integers(0, levels + 1))):
+        if rng.random() < 0.3:
+            continue                      # a level the walk did not stop at
+        op = int(rng.integers(0, 4))
+        mlen = int(rng.integers(0, 0x3FFF + 1) if rng.random() < 0.05
+                   else rng.integers(0, 300))
+        glen = int(rng.integers(1, 0x800)) if rng.random() < 0.2 else 0
+        cost = (op > 0) + mlen + glen
+        if total + cost > budget:
+            break
+        rows[s] = mlen | op << 14 | glen << 16 | int(rng.integers(0, 2)) << 27
+        total += cost
+    fin = [0, 0]
+    for f, op in enumerate((int(rng.choice([0, 3])), 2)):
+        ln = int(rng.integers(0, min(0x3FFF, budget - total) + 1))
+        fin[f] = ln | op << 14
+        total += ln
+    return rows, fin[0], fin[1], total
+
+
+def step_decode_case(name):
+    """(records, plens, tlens, levels, max_ops) of one named case for
+    ``native.wfa_steps_to_ops(records, plens, tlens, max_score=levels,
+    max_ops=max_ops)``: K1's and K4's records from their plain versions
+    (K4 with one level row a text position, levels = read_size), K5-length
+    records with long strokes and gaps at the 10 kbp config's widths, and
+    seeded random records of which some overrun their rows."""
+    if name == "k1_main_bt":
+        from aim_tpu_torch.ops import wfa2
+        cfg, p, t, pl, tl, packed = case("main_bt")
+        rec = torch_records(wfa2.wfa2_reference, cfg, p, t, pl, tl, packed)
+        return rec, pl, tl, cfg.max_score, 2 * cfg.read_size
+    if name in ("k4_main_bt", "k4_overflow_bt"):
+        from aim_tpu_torch.ops import genasm
+        cfg, p, t, pl, tl = genasm_case(name[3:])
+        pp, pt = packed_case(p, t, pl, tl, cfg.read_size)
+        rec = torch_records(genasm.genasm_reference, cfg, pp, pt, pl, tl,
+                            True)
+        return rec, pl, tl, cfg.read_size, 2 * cfg.read_size
+    if name == "k5_long_strokes":
+        rng = np.random.default_rng(29)
+        levels, max_ops, n = 500, 2 * 10112, 12
+        rec = np.zeros((n, levels + 4), np.int32)
+        pl = np.zeros(n, np.int32)
+        tl = np.zeros(n, np.int32)
+        for i in range(n):
+            rows, fin1, fin2, total = _long_step_pair(rng, levels, max_ops)
+            rec[i, :levels + 1] = rows
+            rec[i, levels + 1:] = fin1, fin2, int(rng.integers(0, levels + 1))
+            # pair 0 fills its row to max_ops; every third has room left
+            slack = (max_ops - total if i == 0 else 0 if i % 3
+                     else int(rng.integers(0, max_ops - total + 1)))
+            pl[i] = int(rng.integers(0, total + slack + 1))
+            tl[i] = total + slack - pl[i]
+        rec[-1, levels + 3] = levels + 1          # past smax: no walk
+        return rec, pl, tl, levels, max_ops
+    if name == "random_overrun":
+        rng = np.random.default_rng(31)
+        levels, max_ops, n = 24, 64, 400
+        rec = np.zeros((n, levels + 4), np.int32)
+        for i in range(n):
+            rows, fin1, fin2, _ = _long_step_pair(rng, levels, 48)
+            rec[i, :levels + 1] = rows & ~0x3FF0  # strokes of 0..15
+            rec[i, levels + 1:levels + 3] = fin1 & ~0x3FF0, fin2 & ~0x3FF0
+        # a quarter of the pairs garbage: any bits in any row
+        junk = rng.random(n) < 0.25
+        rec[junk, :levels + 3] = rng.integers(
+            -2**31, 2**31, (int(junk.sum()), levels + 3), dtype=np.int64)
+        rec[:, levels + 3] = rng.integers(-2, levels + 2, n)
+        pl = rng.integers(-3, 40, n).astype(np.int32)
+        tl = rng.integers(-3, 40, n).astype(np.int32)
+        return rec, pl, tl, levels, max_ops
+    raise KeyError(name)
+
+
+def step_stats(rec, plens, tlens, levels, max_ops):
+    """What ``native.wfa_steps_to_ops``'s ``stats`` should read, from the
+    grammar alone: a pair within ``levels`` is clamped where its runs sum
+    past plen + tlen or plen + tlen passes ``max_ops``; each other such
+    pair's level rows with no op and no gap bits are skipped."""
+    rec = np.asarray(rec, np.int64)
+    rows = rec[:, :levels + 1] & 0xFFFFFFFF
+    fins = rec[:, levels + 1:levels + 3] & 0x3FFF
+    total = (fins.sum(1) + ((rows >> 14) & 3 > 0).sum(1)
+             + (rows & 0x3FFF).sum(1) + ((rows >> 16) & 0x7FF).sum(1))
+    ops_len = np.asarray(plens, np.int64) + np.asarray(tlens, np.int64)
+    walked = rec[:, levels + 3] <= levels
+    clamped = walked & ((total > ops_len) | (ops_len > max_ops))
+    fast = walked & ~clamped
+    skipped = int(((rows[fast] & 0xFFFFC000) == 0).sum())
+    return {"skipped_rows": skipped, "clamped_pairs": int(clamped.sum())}
