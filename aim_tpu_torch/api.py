@@ -295,7 +295,13 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
                                    _decode_threads(n, max_ops))
         flags = [_flagged(fwd.records, rec) for _, rec in chunks]
     spans.count("decode_threads", threads)
-    spans.count("flagged_pairs", sum(len(f) for f in flags if f is not None))
+    rows = [lo + f for lo, f in zip(starts, flags) if f is not None]
+    if rows:
+        rows = np.concatenate(rows)
+        spans.count("flagged_pairs", len(rows))
+        # past tlen + 1 the flat tape aliases: the ladder skips these
+        spans.count("alias_pairs", int(np.count_nonzero(
+            plens[rows] > tlens[rows] + 1)))
 
     retry_stages = _retry_stages(fwd)
     for lo, blocks, flagged in zip(starts, records, flags):
@@ -323,6 +329,8 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
             sel = lo + sel
             res.n_fallback += len(sel)
             spans.count("fallback_pairs", len(sel))
+            spans.count("fallback_cells", int(
+                ((plens[sel] + 1).astype(np.int64) * (tlens[sel] + 1)).sum()))
             osc, oops, ob, oe = _oracle_align(pats[sel], txts[sel],
                                               plens[sel], tlens[sel], cfg)
             scores[sel] = osc

@@ -56,6 +56,8 @@ COUNTERS = (
     "flagged_pairs",   # pairs the primary tier flagged
     "retry_pairs",     # flagged pairs a wider band of the ladder certified
     "fallback_pairs",  # flagged pairs the exact host oracle computed
+    "alias_pairs",     # flagged pairs with plen > tlen + 1: no band certifies
+    "fallback_cells",  # cells of the oracle's tables, (plen+1)(tlen+1) a pair
     "over_k_pairs",    # GenASM pairs past k, scored k + 1, walked by none
     "decode_skipped_rows",   # step-record level rows decoded with no write
     "decode_clamped_pairs",  # step records that overran their row, clamped

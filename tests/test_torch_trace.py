@@ -63,6 +63,7 @@ def test_align_file_fills_its_stages(tmp_path):
         "parse_threads": 1,
         # K1 flags no pair, so the ladder and the oracle take none
         "flagged_pairs": 0, "retry_pairs": 0, "fallback_pairs": 0,
+        "alias_pairs": 0, "fallback_cells": 0,
         # a WFA call: the GenASM counter stays 0
         "over_k_pairs": 0,
         # the expander steps over every match-only level and clamps none
@@ -259,6 +260,40 @@ def test_device_log_reads_over_k_pairs(tmp_path, error, over):
     assert spans.calls()[-1]["over_k_pairs"] == n_over
     for c in spans.COUNTERS:
         assert int(fields[c]) == res.spans.counts[c]
+
+
+@pytest.mark.parametrize("n_alias", [1, 5], ids=["one", "five"])
+def test_alias_pairs_and_fallback_cells_read_planted_pairs(tmp_path,
+                                                          n_alias):
+    """NW at 100 bp, one edit a pair, with ``n_alias`` texts cut so that
+    plen > tlen + 1: K2 flags those pairs alone, the ladder skips them and
+    the oracle fills their tables; the counters read their number and
+    their cells, (plen + 1)(tlen + 1) a pair, in the call's record, the
+    ring and the device log."""
+    src = str(tmp_path / "pairs")
+    datagen.write_pair_file(src, 64, 100, 0.01, seed=5)
+    from aim_tpu_torch import native
+    cfg = derive_config("nw", 100, 0.01, backtrace=True)
+    pats, txts, plens, tlens = native.parse_pairs(src, 64, cfg.read_size)
+    assert not (plens > tlens + 1).any()
+    at = np.random.default_rng(n_alias).choice(64, n_alias, replace=False)
+    tlens[at] = plens[at] - 2 - np.arange(n_alias) * 7
+    for i in at:
+        txts[i, tlens[i]:] = 0
+    log = tmp_path / "dev.log"
+    res = tapi.align(pats, txts, plens, tlens, cfg, device="cpu")
+    tapi.write_device_log(str(log), cfg, res, 64, "cpu")
+    cells = int(((plens[at] + 1) * (tlens[at] + 1)).sum())
+    c = res.spans.counts
+    assert c["alias_pairs"] == c["flagged_pairs"] == n_alias
+    assert c["fallback_pairs"] == n_alias and c["retry_pairs"] == 0
+    assert c["fallback_cells"] == cells
+    assert spans.calls()[-1]["alias_pairs"] == n_alias
+    assert spans.calls()[-1]["fallback_cells"] == cells
+    fields = dict(f.split("=", 1)
+                  for f in log.read_text().split("|", 1)[1].split())
+    assert int(fields["alias_pairs"]) == n_alias
+    assert int(fields["fallback_cells"]) == cells
 
 
 # ---- the benchmark's readers of the log -----------------------------------
